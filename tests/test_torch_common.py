@@ -162,15 +162,23 @@ def test_cpu_runs_launch_no_kernel_and_numpy_needs_a_device(monkeypatch):
     v = np.arange(3000, dtype=np.uint32)
     ok, ov = trt.sort(k, v, device="cpu", values_are_ranks=True, check_order=True)
     assert np.array_equal(ok.numpy(), golden.golden_sort(k))
+    rk = trt.sort(k, device="cpu", method="radix", check_order=True)
+    assert np.array_equal(rk.numpy(), golden.golden_sort(k))
     assert not trt.is_sorted(k, device="cpu")
     int(trt.disorder_count(torch.from_numpy(k)))
+    assert np.array_equal(trt.prefix_sum(v, device="cpu").numpy(),
+                          golden.golden_prefix_sum(v))
     assert _build.launch_counts() == {
         "bitonic_tile_kernel": 0, "bitonic_global_stage_kernel": 0,
-        "disorder_kernel": 0}
+        "disorder_kernel": 0, "scan_kernel": 0, "digit_histogram_kernel": 0,
+        "reorder_kernel": 0}
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for fn in (lambda: trt.sort(k), lambda: trt.argsort(k),
+               lambda: trt.sort(k, method="radix"),
                lambda: trt.is_sorted(k), lambda: trt.disorder_count(k),
+               lambda: trt.prefix_sum(v),
                lambda: trt.sort_packed(np.zeros((4, 2), np.uint32)),
-               lambda: trt.RadixSortKernel(count=8).compile()):
+               lambda: trt.RadixSortKernel(count=8).compile(),
+               lambda: trt.PrefixSumKernel(count=8).compile()):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             fn()

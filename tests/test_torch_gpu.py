@@ -1,4 +1,5 @@
-"""K1 and K2 on the CUDA card against their plain PyTorch versions.
+"""K1, K2, K4, K5 and K6 on the CUDA card against their plain PyTorch
+versions, and the sort engines on the card against golden and `torch.sort`.
 
 Marked `gpu`; each test asks the `cuda` fixture for the card and skips where
 there is none. On a CUDA machine without JAX, run them apart from the rest of
@@ -13,7 +14,7 @@ import torch
 import tpu_radix_sort_torch as trt
 from tpu_radix_sort_torch import _build
 from tpu_radix_sort_torch.models.golden import golden_sort
-from tpu_radix_sort_torch.ops import bitonic, checksort
+from tpu_radix_sort_torch.ops import bitonic, checksort, radix, scan
 from tpu_radix_sort_torch.ops import sort as sort_mod
 
 pytestmark = pytest.mark.gpu
@@ -94,3 +95,58 @@ def test_sort_on_card_matches_golden(cuda, monkeypatch):
         assert np.array_equal(trt.sort(k, device=cuda).cpu().numpy(), golden_sort(k))
         assert trt.is_sorted(np.sort(k), device=cuda)
         assert not trt.is_sorted(k, device=cuda)
+
+
+@pytest.mark.parametrize("n", [1, 4095, 4096, 4097, 65536, (1 << 22) + 3])
+@pytest.mark.parametrize("inclusive", [False, True])
+def test_scan_kernel_matches_plain(cuda, n, inclusive):
+    rng = np.random.default_rng(n)
+    u = rng.integers(0, 2**32, n, dtype=np.uint64).astype(np.uint32)
+    t = torch.from_numpy(u.view(np.int32)).to(cuda)
+    before = _build.SCAN.launches
+    got = scan.scan_kernel(t, inclusive=inclusive)
+    # one launch per tile level: a block-sum and a scan launch below the top
+    levels, m = 1, n
+    while m > scan.SCAN_TILE:
+        m = -(-m // scan.SCAN_TILE)
+        levels += 1
+    assert _build.SCAN.launches == before + 2 * levels - 1
+    assert torch.equal(got, scan.scan_plain(t, inclusive=inclusive))
+
+
+@pytest.mark.parametrize("n_arr", [1, 2, 3, 4])
+@pytest.mark.parametrize("tile", [32, 256, 4096, 1 << 16])
+def test_radix_kernels_match_plain(cuda, n_arr, tile):
+    rng = np.random.default_rng(n_arr * tile)
+    n = (1 << 18) + 3
+    x = torch.from_numpy(rng.integers(-2**31, 2**31, (n_arr, n), dtype=np.int64)
+                         .astype(np.int32)).to(cuda)
+    x[0, ::7] = 12345  # one digit run across tiles
+    for bit in (0, 14, 30):
+        h0, r0 = _build.DIGIT_HISTOGRAM.launches, _build.REORDER.launches
+        hist = radix.digit_histogram(x[0], bit=bit, tile=tile)
+        assert torch.equal(hist, radix.digit_histogram_plain(x[0], bit=bit, tile=tile))
+        offs = radix.bucket_offsets(hist)
+        got = radix.reorder_pass(x, offs, bit=bit, tile=tile)
+        want = radix.reorder_pass_plain(x, offs, bit=bit, tile=tile, out=torch.empty_like(x))
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), bit
+        assert (_build.DIGIT_HISTOGRAM.launches, _build.REORDER.launches) == (h0 + 1, r0 + 1)
+
+
+def test_radix_sort_on_card_matches_torch_sort(cuda):
+    rng = np.random.default_rng(11)
+    n = (1 << 20) + 3
+    k = torch.from_numpy(rng.integers(0, 2**32, n, dtype=np.uint64).astype(np.uint32)).to(cuda)
+    v = torch.arange(n, dtype=torch.int32, device=cuda).view(torch.uint32)
+    sk, idx = torch.sort(k.view(torch.int32) ^ (-2**31), stable=True)
+    ok, ov = trt.sort(k, v, method="radix")
+    assert torch.equal(ok.view(torch.int32), sk ^ (-2**31))
+    assert torch.equal(ov.view(torch.int32), idx.to(torch.int32))
+    assert torch.equal(trt.sort(k, method="radix"), ok)
+    h0 = _build.DIGIT_HISTOGRAM.launches
+    assert torch.equal(trt.sort(ok, method="radix", check_order=True), ok)
+    assert _build.DIGIT_HISTOGRAM.launches == h0
+    small = k.view(torch.int32) & 15
+    out, _, n_run = radix.sort_u32(small, check_order=True, return_passes=True)
+    assert n_run == 2 and torch.equal(out, torch.sort(small)[0])

@@ -9,7 +9,7 @@ import torch
 
 import tpu_radix_sort as jtrs
 import tpu_radix_sort_torch as trt
-from tpu_radix_sort_torch.models.golden import golden_sort
+from tpu_radix_sort_torch.models.golden import golden_prefix_sum, golden_sort
 from tpu_radix_sort_torch.ops import sort as sort_mod
 from tpu_radix_sort_torch.runtime.timing import device_time
 
@@ -65,7 +65,8 @@ def test_broken_rank_promise_matches_jax():
 
 @pytest.mark.parametrize("n", [0, 1, 2, 129])
 @pytest.mark.parametrize("kw", [{}, {"values_are_ranks": True}, {"bit_count": 8},
-                                {"check_order": True}, {"method": "xla"}])
+                                {"check_order": True}, {"method": "xla"},
+                                {"method": "radix"}])
 def test_tiny_sizes(n, kw):
     rng = np.random.default_rng(n)
     k = _u32(rng, n, 10)
@@ -80,6 +81,9 @@ def test_tiny_sizes(n, kw):
     {"bit_count": 28}, {"descending": True}, {"count": 777},
     {"count": 777, "bit_count": 8, "descending": True, "values_are_ranks": True},
     {"check_order": True}, {"method": "xla"}, {"method": "xla", "bit_count": 8},
+    {"method": "radix"}, {"method": "radix", "values_are_ranks": True},
+    {"method": "radix", "count": 777, "bit_count": 8, "descending": True},
+    {"method": "radix", "check_order": True},
 ])
 def test_options_match_golden(kw):
     """Heavy duplicates and real 0xFFFFFFFF keys beside the sentinel pads;
@@ -200,6 +204,13 @@ def test_kernel_classes():
         trt.RadixSortKernel(count=8, bit_count=7)
     with pytest.raises(NotImplementedError):
         trt.RadixSortKernel(count=8, key_dtype=torch.uint64)
+    radix_kern = trt.RadixSortKernel(count=800, has_values=True, bit_count=12,
+                                     method="radix", device="cpu").compile()
+    assert _eq(radix_kern.dispatch(k, v), golden_sort(k, v, count=800, bit_count=12))
+    radix_packed = trt.RadixSortPackedKernel(count=900, method="radix", device="cpu")
+    assert np.array_equal(_np(radix_packed.dispatch(packed)), np.stack(golden_sort(k, v), -1))
+    scan_kern = trt.PrefixSumKernel(count=700, device="cpu").compile()
+    assert _eq(scan_kern.dispatch(v), golden_prefix_sum(v, count=700))
 
 
 def test_input_errors_match_jax_types():
@@ -212,11 +223,11 @@ def test_input_errors_match_jax_types():
         (ValueError, lambda: trt.sort(z, count=9, device="cpu")),
         (ValueError, lambda: trt.sort(z, np.zeros(4, np.uint32), device="cpu")),
         (ValueError, lambda: trt.sort(z, method="bogus", device="cpu")),
+        (ValueError, lambda: trt.sort(z, method="radix", tile=16, device="cpu")),
         (TypeError, lambda: trt.sort(z, np.zeros(8, np.int16), device="cpu")),
         (ValueError, lambda: trt.sort(z, np.zeros(8, np.int64), device="cpu",
                                       values_are_ranks=True)),
         (ValueError, lambda: trt.sort_packed(np.zeros((4, 3), np.uint32), device="cpu")),
-        (NotImplementedError, lambda: trt.sort(z, method="radix", device="cpu")),
         (NotImplementedError, lambda: trt.sort(np.zeros(8, np.uint16), device="cpu")),
         (NotImplementedError, lambda: trt.sort(np.zeros(8, np.float64), device="cpu")),
         (NotImplementedError, lambda: trt.sort(z, device="cpu", mesh=object())),

@@ -2,17 +2,21 @@
 
 Same public surface and byte-exact outputs as the JAX package, for the
 slices ported so far (ROADMAP.md): the flat single-device sort of 32-bit
-keys through a hand-written bitonic network (``csrc/bitonic.cu``) and the
-order check (``csrc/disorder.cu``). Tensors run where they lie; numpy input
-goes to the CUDA card unless ``device=`` says otherwise.
+keys through a hand-written bitonic network (``csrc/bitonic.cu``) or, with
+``method='radix'``, the 4-way LSD radix sort (``csrc/radix.cu``,
+``csrc/scan.cu``); the order check (``csrc/disorder.cu``); and the prefix
+sum (``csrc/scan.cu``). Tensors run where they lie; numpy input goes to the
+CUDA card unless ``device=`` says otherwise.
 """
 from .api import (
+    PrefixSumKernel,
     RadixSortBufferKernel,
     RadixSortKernel,
     RadixSortPackedKernel,
     RadixSortTextureKernel,
 )
 from .ops.checksort import disorder_count, is_sorted
+from .ops.scan import prefix_sum
 from .ops.sort import argsort, sort, sort_packed
 
 __version__ = "0.1.0"
@@ -23,9 +27,11 @@ __all__ = [
     "sort_packed",
     "is_sorted",
     "disorder_count",
+    "prefix_sum",
     "RadixSortKernel",
     "RadixSortBufferKernel",
     "RadixSortPackedKernel",
     "RadixSortTextureKernel",
+    "PrefixSumKernel",
     "__version__",
 ]

@@ -129,7 +129,17 @@ BITONIC_GLOBAL_STAGE = Kernel(
 DISORDER = Kernel(
     "disorder_kernel", "disorder", "trs_disorder_count", [_P, _I64, _P, _P],
 )
-KERNELS = (BITONIC_TILE, BITONIC_GLOBAL_STAGE, DISORDER)
+SCAN = Kernel(
+    "scan_kernel", "scan", "trs_scan_pass", [_I32, _P, _I64, _I64, _P, _P, _I32, _P],
+)
+DIGIT_HISTOGRAM = Kernel(
+    "digit_histogram_kernel", "radix", "trs_digit_histogram",
+    [_P, _I64, _I32, _I64, _P, _P],
+)
+REORDER = Kernel(
+    "reorder_kernel", "radix", "trs_reorder", [_P, _P, _I64, _I32, _I32, _I64, _P, _P],
+)
+KERNELS = (BITONIC_TILE, BITONIC_GLOBAL_STAGE, DISORDER, SCAN, DIGIT_HISTOGRAM, REORDER)
 
 
 def reset_launches() -> None:

@@ -7,7 +7,7 @@ sort once on a buffer of the configured size.
 
 Class names mirror the reference exports: `RadixSortKernel` (+ alias
 `RadixSortBufferKernel`), `RadixSortPackedKernel` (+ alias
-`RadixSortTextureKernel`). `PrefixSumKernel` comes with the scan kernel.
+`RadixSortTextureKernel`), `PrefixSumKernel`.
 """
 from __future__ import annotations
 
@@ -16,6 +16,7 @@ import functools
 import torch
 
 from .ops import common
+from .ops import scan as scan_ops
 from .ops import sort as sort_ops
 from .utils import interop
 
@@ -24,6 +25,7 @@ __all__ = [
     "RadixSortBufferKernel",
     "RadixSortPackedKernel",
     "RadixSortTextureKernel",
+    "PrefixSumKernel",
 ]
 
 
@@ -132,3 +134,36 @@ class RadixSortPackedKernel:
 
 
 RadixSortTextureKernel = RadixSortPackedKernel
+
+
+class PrefixSumKernel:
+    """Exclusive (default) or inclusive prefix sum of the first `count`
+    elements of a uint32/int32 buffer, u32 wraparound, the rest untouched
+    (the reference's `PrefixSumKernel`). `avoid_bank_conflicts` is accepted
+    for API compatibility and ignored. `device` is where `compile()` warms
+    up: by default the CUDA card.
+    """
+
+    def __init__(self, *, count: int, inclusive: bool = False,
+                 avoid_bank_conflicts: bool = False, mesh=None, device=None):
+        del avoid_bank_conflicts  # accepted, ignored
+        common.reject_mesh(mesh)
+        self.count = int(count)
+        if self.count < 0:
+            raise ValueError(f"count must be >= 0, got {self.count}")
+        self.device = device
+        self._fn = functools.partial(scan_ops.prefix_sum, count=self.count,
+                                     inclusive=inclusive)
+
+    def dispatch(self, items):
+        """Run the scan. Returns a new tensor of the items' dtype."""
+        return self._fn(items, device=self.device)
+
+    def compile(self, buffer_len=None):
+        """Warm-up: build the kernel and scan a zero uint32 buffer of
+        `buffer_len` (default: count) elements on the kernel's device."""
+        dev = interop.resolve_device(self.device)
+        self.dispatch(torch.zeros(buffer_len or self.count, dtype=torch.uint32, device=dev))
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        return self

@@ -9,13 +9,15 @@ the port is held to, on the CPU and in ``chip_smoke.py``:
   (float32/int32 reinterpret their bits, the reference's contract), or of
   the total-order bijection with ``total_order=True``;
 - ``descending`` is a stable ascending sort of the bit-flipped masked key;
-- the optional value payload is permuted identically to the keys.
+- the optional value payload is permuted identically to the keys;
+- the prefix sum is exclusive, with u32 wraparound, over the first
+  ``count`` elements, the rest untouched.
 """
 from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["golden_sort", "golden_is_sorted"]
+__all__ = ["golden_sort", "golden_is_sorted", "golden_prefix_sum"]
 
 
 def _bit_pattern_u32(keys: np.ndarray) -> np.ndarray:
@@ -91,3 +93,18 @@ def golden_is_sorted(keys: np.ndarray, *, count: int | None = None,
     bit_count = 32 if bit_count is None else bit_count
     u = _key_view(keys, n, bit_count, total_order, descending)
     return bool(np.all(u[:-1] <= u[1:])) if n > 1 else True
+
+
+def golden_prefix_sum(items: np.ndarray, *, count: int | None = None) -> np.ndarray:
+    """Exclusive prefix sum of the first `count` elements, u32 wraparound,
+    in the items' dtype (uint32 or int32, same bits); the rest untouched.
+
+    Exact in uint64 throughout (the JAX package's copy concatenates a
+    Python ``[0]``, which promotes to float64 and rounds sums above 2^53).
+    """
+    items = np.asarray(items)
+    n = items.shape[0] if count is None else int(count)
+    out = items.copy()
+    seg = items[:n].view(np.uint32).astype(np.uint64)
+    out[:n] = (np.cumsum(seg) - seg).astype(np.uint32).view(items.dtype)
+    return out

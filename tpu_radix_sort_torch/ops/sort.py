@@ -8,9 +8,10 @@ their u32 bit pattern or by true total order with `total_order=True`;
 stable ascending, or stable descending; `check_order` early exit.
 
 Engines (`method`): 'bitonic' (the hand-written network, kernel K1; what
-'auto' picks), 'xla' (``torch.sort(stable=True)`` on the sign-biased int32
-view plus a gather of the payloads — the baseline, outside any kernel of
-this package). 'radix' and `mesh=` come with later slices.
+'auto' picks), 'radix' (the 4-way LSD radix sort, kernels K5, K4 and K6,
+``ops/radix.py``), 'xla' (``torch.sort(stable=True)`` on the sign-biased
+int32 view plus a gather of the payloads — the baseline, outside any kernel
+of this package). `mesh=` comes with a later slice.
 
 Device policy: a tensor runs where it lies; numpy or list input goes to the
 CUDA card unless `device=` names another (see ``utils/interop.py``).
@@ -20,7 +21,7 @@ from __future__ import annotations
 import torch
 
 from ..utils import interop
-from . import bitonic, checksort, common
+from . import bitonic, checksort, common, radix
 
 _METHODS = ("auto", "bitonic", "radix", "xla")
 
@@ -97,23 +98,25 @@ def _bitonic_pad_sort(mkeys, *, stable, use_rank, ordered, tile):
 def _resolve_method(method: str) -> str:
     if method not in _METHODS:
         raise ValueError(f"method must be one of {_METHODS}, got {method}")
-    if method == "radix":
-        raise NotImplementedError(
-            "method='radix' is not ported yet: the radix engine comes with "
-            "the 'ops/radix.py' slice of ROADMAP.md (Queue 1, item 8)"
-        )
     return "bitonic" if method == "auto" else method
 
 
-def _engine_sort(mkeys, payloads, *, stable, method, tile, rank_payload=None):
+def _engine_sort(mkeys, payloads, *, stable, method, tile, key_bits=32,
+                 rank_payload=None, check_order=False):
     """Sort by mkeys (stably if `stable`), co-permuting payloads.
 
     mkeys and payloads are 1-D int32 (u32 pattern) tensors. Returns
-    (mkeys, payloads). `rank_payload`: index of a payload that is strictly
-    increasing as u32 with every element < 0xFFFFFFFF (an argsort iota); it
-    doubles as the stability tie-break, so the network carries one column
-    fewer.
+    (mkeys, payloads). `key_bits`: the number of meaningful low bits of
+    mkeys (the radix engine runs key_bits / 2 passes). `rank_payload`: index
+    of a payload that is strictly increasing as u32 with every element
+    < 0xFFFFFFFF (an argsort iota); it doubles as the bitonic network's
+    stability tie-break, so the network carries one column fewer. The radix
+    engine is stable by construction and ignores it; it alone takes
+    `check_order`, its mid-sort early exit.
     """
+    if method == "radix":
+        return radix.sort_u32(mkeys, payloads, bit_count=key_bits, tile=tile,
+                              check_order=check_order)
     if method == "xla":
         sk, idx = torch.sort(common.bias_i32(mkeys), stable=True)
         return common.bias_i32(sk), tuple(p[idx] for p in payloads)
@@ -160,8 +163,8 @@ def sort(
     Returns sorted keys, or (keys, values) when values is given, as new
     tensors on the keys' device. Elements at index >= count are returned
     untouched. Key dtypes: uint32/float32/int32; `values` any 4- or 8-byte
-    dtype. `tile` overrides the bitonic engine's tile (elements per CUDA
-    block, a power of two); the output does not depend on it.
+    dtype. `tile` overrides the engine's tile (elements per CUDA block, a
+    power of two); the output does not depend on it.
 
     `values_are_ranks=True` promises that `values`, viewed as u32, is
     strictly increasing with every element < 0xFFFFFFFF (e.g. the identity
@@ -196,16 +199,15 @@ def sort(
     method = _resolve_method(method)
     out_k, out_v = _sort_core(
         keys.contiguous(), None if values is None else values.contiguous(),
-        common.bit_mask(bit_count), count=count, masked=bit_count < 32,
-        check_order=check_order, total_order=total_order,
-        descending=descending,
+        count=count, bit_count=bit_count, check_order=check_order,
+        total_order=total_order, descending=descending,
         values_are_ranks=values_are_ranks and values is not None,
         method=method, tile=tile,
     )
     return out_k if values is None else (out_k, out_v)
 
 
-def _sort_core(keys, values, mask, *, count, masked, check_order, total_order,
+def _sort_core(keys, values, *, count, bit_count, check_order, total_order,
                descending, values_are_ranks, method, tile):
     """Sort core. Always returns (keys, values_or_None), never aliasing the
     inputs."""
@@ -216,7 +218,8 @@ def _sort_core(keys, values, mask, *, count, masked, check_order, total_order,
     head = keys[:count]
     u_full = (common.to_total_order_u32(head) if total_order
               else common.to_sortable_u32(head))
-    mask = common.i32(mask)
+    masked = bit_count < 32
+    mask = common.i32(common.bit_mask(bit_count))
     mkeys = u_full & mask if masked else u_full
     if descending:
         # stable descending == stable ascending on the flipped masked key
@@ -235,8 +238,8 @@ def _sort_core(keys, values, mask, *, count, masked, check_order, total_order,
 
     def do_sort():
         mk, ps = _engine_sort(mkeys, tuple(payloads), stable=stable,
-                              method=method, tile=tile,
-                              rank_payload=rank_payload)
+                              method=method, tile=tile, key_bits=bit_count,
+                              rank_payload=rank_payload, check_order=check_order)
         ps = list(ps)
         if carry_full_key:
             u_sorted = ps.pop(0)
@@ -244,7 +247,8 @@ def _sort_core(keys, values, mask, *, count, masked, check_order, total_order,
             u_sorted = mk ^ mask if descending else mk
         return (u_sorted, *ps[: len(vcols)])
 
-    if check_order:
+    if check_order and method != "radix":
+        # the radix engine checks mid-sort instead (_engine_sort)
         result = checksort.with_early_exit(mkeys, (u_full, *vcols), do_sort)
     else:
         result = do_sort()
