@@ -10,8 +10,11 @@ holds each kernel against its plain PyTorch version on the card, drives the
 public entry points at the headline size (bench.py's 2^26 u32 key + rank
 payload) through both sort engines (the bitonic network and
 ``method='radix'``), the mid-sort early exit, ``prefix_sum`` and the other
-options, checks every result byte for byte, times the sorts, the scan, each
-kernel, its plain version and ``torch.sort``/``torch.cumsum``, and prints:
+options, then 64-bit keys (u64 key + rank, keys-only, float64 total order,
+the 7-column bitonic and 6-column radix paths, the two-column order-check
+gate, ``is_sorted``/``disorder_count``) and bfloat16 keys at 2^26; checks
+every result byte for byte, times the sorts, the scan, each kernel, its
+plain version and ``torch.sort``/``torch.cumsum``, and prints:
 
 - the card's name and power limit (``nvidia-smi``) and the build's register
   and shared-memory lines;
@@ -40,12 +43,14 @@ HEADLINE_N = 1 << 26
 SPLIT_N = 40_000_000
 OPTION_N = 1 << 22
 SMALL_N = (1 << 16) + 3
+CHECK_N = (1 << 24) + 3  # the order-check kernels against their plain versions
 SEED = 20261016
 # The TPU kernel each CUDA kernel replaces (the Pallas kernel function).
 REPLACES = {
     "bitonic_tile_kernel": "tpu_radix_sort/ops/bitonic.py:267",
     "bitonic_global_stage_kernel": "tpu_radix_sort/ops/bitonic.py:267",
     "disorder_kernel": "tpu_radix_sort/ops/checksort.py:39",
+    "disorder_cols_kernel": "tpu_radix_sort/ops/checksort.py:90",
     "scan_kernel": "tpu_radix_sort/ops/scan.py:71",
     "digit_histogram_kernel": "tpu_radix_sort/ops/radix.py:57",
     "reorder_kernel": "tpu_radix_sort/ops/radix.py:129",
@@ -79,10 +84,12 @@ def u32_err(a, b):
 
 
 def same(a, b):
-    """Byte equality of two tensors of 4-byte elements (any dtype)."""
+    """Byte equality of two tensors of equal element size (any dtype)."""
     import torch
 
-    return a.shape == b.shape and torch.equal(a.view(torch.int32), b.view(torch.int32))
+    view = {2: torch.int16, 4: torch.int32, 8: torch.int64}[a.dtype.itemsize]
+    return (a.shape == b.shape and a.dtype.itemsize == b.dtype.itemsize
+            and torch.equal(a.view(view), b.view(view)))
 
 
 def timed(fn, events):
@@ -169,15 +176,21 @@ def run(dev) -> None:
                               generator=gen)
         return x.view(torch.uint32)
 
+    def rand_u64(n):
+        return torch.randint(-2**63, 2**63 - 1, (n,), dtype=torch.int64, device=dev,
+                             generator=gen).view(torch.uint64)
+
     max_err = {k.name: 0 for k in _build.KERNELS}
 
     # ---- kernels vs plain versions, small shapes ---------------------------
-    for n_arr, n_keys in ((1, 1), (2, 2), (3, 2), (4, 2)):
+    # (3, 3): the 64-bit key + rank sort; (6, 3) and (7, 3): the 64-bit key
+    # paths' widest networks
+    for n_arr, n_keys in ((1, 1), (2, 2), (3, 2), (3, 3), (4, 2), (6, 3), (7, 3)):
         n, tile = 1 << 16, 1024
         x = torch.stack([rand_u32(n, 1 << 12).view(torch.int32)]
                         + [rand_u32(n).view(torch.int32) for _ in range(n_arr - 1)])
-        if n_keys == 2:
-            x[1] = torch.randperm(n, device=dev, generator=gen).to(torch.int32)
+        if n_keys >= 2:
+            x[n_keys - 1] = torch.randperm(n, device=dev, generator=gen).to(torch.int32)
         for call in bitonic.sort_schedule(n, tile):
             got = bitonic.run_schedule(x.clone(), [call], n_keys=n_keys, tile=tile)
             stages = call[1] if call[0] == "tile" else [call[1:]]
@@ -192,7 +205,7 @@ def run(dev) -> None:
         keys = x[:n_keys].cpu().numpy().view(np.uint32)
         check(np.array_equal(np.lexsort(keys[::-1]), np.arange(n)),
               f"K1 == plain per call and sorted, cols {(n_arr, n_keys)}, n 2^16, tile {tile}")
-    n = (1 << 24) + 3
+    n = CHECK_N
     base = rand_u32(n)
     srt = torch.sort(common.bias_i32(base.view(torch.int32)))[0]
     srt = common.bias_i32(srt)
@@ -201,9 +214,29 @@ def run(dev) -> None:
         got = checksort.disorder_kernel(u)
         want = checksort.disorder_plain(u)
         max_err["disorder_kernel"] = max(max_err["disorder_kernel"], u32_err(got, want))
-        check(same(got, want), f"K2 == plain on {label} u32, n 2^24+3 "
+        check(same(got, want), f"K2 == plain on {label} u32, n {n} "
               f"(count {int(got.view(torch.uint32)[0])})")
     del base, srt
+
+    # K3 on the (hi, lo) view of u64 keys; pair (b - 1, b) straddles two of
+    # its 256-thread CUDA blocks
+    v = rand_u64(n).view(torch.int64)
+    srt = torch.sort(v ^ common.SIGN_I64)[0] ^ common.SIGN_I64
+    edge = srt.clone()
+    b = 256 * 1000
+    edge[b] = edge[b - 1] - 1
+    for label, x, want_count in (
+            ("sorted", srt, 0), ("reversed", srt.flip(0), None), ("random", v, None),
+            ("equal hi, lo deciding", (v & 0xFFFFFFFF) | (0x1BCD1234 << 32), None),
+            ("one inversion across a block boundary", edge, 1)):
+        hi, lo = common.to_sortable_u64_cols(x)
+        got = checksort.disorder_cols_kernel(hi, lo)
+        want = checksort.disorder_cols_plain(hi, lo)
+        max_err["disorder_cols_kernel"] = max(max_err["disorder_cols_kernel"],
+                                              u32_err(got, want))
+        check(same(got, want) and want_count in (None, int(got)),
+              f"K3 == plain on {label} u64, n {n} (count {int(got.view(torch.uint32)[0])})")
+    del v, srt, edge, hi, lo
 
     table_n = radix.R * common.cdiv(HEADLINE_N, radix.DEFAULT_TILE)
     scan_sizes = (1, scan.SCAN_TILE, scan.SCAN_TILE + 1, SMALL_N, table_n)
@@ -217,7 +250,7 @@ def run(dev) -> None:
                 raise CheckFailed(f"K4 differs from plain, n {n}, inclusive {inclusive}")
     check(max_err["scan_kernel"] == 0,
           f"K4 == plain, exclusive and inclusive, n in {scan_sizes}")
-    for n_arr in (1, 2, 3, 4):
+    for n_arr in (1, 2, 3, 4, 5, 6):  # 5 and 6: the 64-bit radix paths
         x = torch.stack([rand_u32(SMALL_N).view(torch.int32) for _ in range(n_arr)])
         for keys_kind in ("random", "all-equal"):
             if keys_kind == "all-equal":
@@ -342,6 +375,97 @@ def run(dev) -> None:
               f"(K2 {d['disorder_kernel']} launches)")
     del k16, out
 
+    # 64-bit keys at the headline size (ops/sort64.py): half of the keys
+    # share one hi word, so lo decides there
+    def ref64(k):
+        sk, idx = torch.sort(k.view(torch.int64) ^ common.SIGN_I64, stable=True)
+        return (sk ^ common.SIGN_I64).view(torch.uint64), idx.to(torch.int32).view(torch.uint32)
+
+    k64 = rand_u64(HEADLINE_N)
+    k64v = k64.view(torch.int64)
+    k64v[: HEADLINE_N // 2] = (k64v[: HEADLINE_N // 2] & 0xFFFFFFFF) | (0x1BCD1234 << 32)
+    r64k, r64v = ref64(k64)
+    for method in ("auto", "radix"):
+        o = drive(f"u64 k+rank {method} 2^26",
+                  lambda: trt.sort(k64, iota, values_are_ranks=True, method=method))
+        check(same(o[0], r64k) and same(o[1], r64v),
+              f"sort(u64 keys, iota, values_are_ranks=True, method={method!r}), 2^26 "
+              f"== torch.sort(stable=True) of the biased int64 view")
+        o = drive(f"u64 keys-only {method} 2^26", lambda: trt.sort(k64, method=method))
+        check(same(o, r64k), f"sort(u64 keys, method={method!r}), 2^26 == torch.sort")
+    check(per_case["u64 keys-only radix 2^26"]["digit_histogram_kernel"] == 32,
+          "the 64-bit radix sort runs 32 passes")
+    f64 = torch.randn(HEADLINE_N, dtype=torch.float64, device=dev, generator=gen) * 1e6
+    f64[::1000] = float("inf")
+    f64[7::1000] = -float("inf")
+    rf64 = torch.sort(f64, stable=True)[0]
+    for method in ("auto", "radix"):
+        o = drive(f"f64 total_order {method} 2^26",
+                  lambda: trt.sort(f64, total_order=True, method=method))
+        check(same(o, rf64), f"sort(f64, total_order=True, method={method!r}), 2^26 "
+              "== torch.sort of the floats")
+    del f64, rf64, o
+    wk, wv = k64[:OPTION_N], rand_u64(OPTION_N)
+    gk, gv = golden_sort(wk.cpu().numpy(), wv.cpu().numpy(), bit_count=40)
+    for method in ("auto", "radix"):
+        o = drive(f"u64 bit_count=40 u64 values {method} 2^22",
+                  lambda: trt.sort(wk, wv, bit_count=40, method=method))
+        check(np.array_equal(o[0].cpu().numpy(), gk) and np.array_equal(o[1].cpu().numpy(), gv),
+              f"sort(u64 keys, u64 values, bit_count=40, method={method!r}), 2^22 == golden "
+              "(7 columns through K1, 6 through K6)")
+    for method in ("auto", "radix"):
+        case = f"u64 check_order sorted {method} 2^26"
+        o = drive(case, lambda: trt.sort(r64k, check_order=True, method=method))
+        d = per_case[case]
+        check(same(o, r64k) and d["disorder_cols_kernel"] == 2 and d["disorder_kernel"] == 0
+              and all(d[k] == 0 for k in ("bitonic_tile_kernel", "bitonic_global_stage_kernel",
+                                          "digit_histogram_kernel", "reorder_kernel")),
+              f"u64 check_order=True on sorted input, method={method!r}: K3 gates, "
+              "K1/K5/K6 do not run")
+    _, lo_idx = torch.sort(k64v & 0xFFFFFFFF, stable=True)
+    lo_sorted = drive("u64 bit_count=32 2^26", lambda: trt.sort(k64, bit_count=32))
+    check(same(lo_sorted, k64v[lo_idx]), "sort(u64 keys, bit_count=32), 2^26 == torch.sort of lo")
+    case = "u64 check_order sorted bit_count=32 2^26"
+    o = drive(case, lambda: trt.sort(lo_sorted, bit_count=32, check_order=True))
+    d = per_case[case]
+    check(same(o, lo_sorted) and d["disorder_kernel"] == 2 and d["disorder_cols_kernel"] == 0
+          and d["bitonic_tile_kernel"] == 0,
+          "u64 check_order=True with bit_count=32 on sorted input: K2 gates, K3 does not run")
+    del lo_idx, lo_sorted, o
+    o = drive("u64 is_sorted 2^26", lambda: (trt.is_sorted(r64k), trt.is_sorted(k64)))
+    check(o == (True, False) and per_case["u64 is_sorted 2^26"]["disorder_cols_kernel"] == 3,
+          "is_sorted of sorted and unsorted u64, 2^26 (K3: 2 + 1 launches)")
+    o = drive("u64 disorder_count 2^26", lambda: trt.disorder_count(k64))
+    want = checksort.disorder_cols_plain(*common.to_sortable_u64_cols(k64))
+    check(o.dtype == torch.uint32 and int(o) == int(want),
+          f"disorder_count of u64, 2^26 == plain ({int(o)})")
+
+    # bfloat16 keys at the headline size: their u16 pattern in a u32 lane
+    b16 = torch.randint(-2**15, 2**15, (HEADLINE_N,), dtype=torch.int16, device=dev,
+                        generator=gen).view(torch.bfloat16)
+    _, idx16 = torch.sort(b16.view(torch.int16).to(torch.int32) & 0xFFFF, stable=True)
+    rb_k, rb_v = b16[idx16], idx16.to(torch.int32).view(torch.uint32)
+    del idx16
+    for method in ("auto", "radix"):
+        o = drive(f"bf16 keys-only {method} 2^26", lambda: trt.sort(b16, method=method))
+        check(same(o, rb_k), f"sort(bf16 keys, method={method!r}), 2^26 == torch.sort of "
+              "the u16 patterns")
+        o = drive(f"bf16 k+iota {method} 2^26",
+                  lambda: trt.sort(b16, iota, values_are_ranks=True, method=method))
+        check(same(o[0], rb_k) and same(o[1], rb_v),
+              f"sort(bf16 keys, iota, method={method!r}), 2^26 == torch.sort(stable=True)")
+    check(per_case["bf16 keys-only radix 2^26"]["digit_histogram_kernel"] == 8,
+          "the 16-bit radix sort runs 8 passes")
+    u16 = (small.cpu().numpy() >> np.uint32(16)).astype(np.uint16)
+    for method in ("auto", "radix"):
+        o = drive(f"u16 count < n bit_count=12 {method} 2^22", lambda: trt.sort(
+            u16, hv, count=cnt, bit_count=12, descending=True, method=method))
+        want = golden_sort(u16, hv, count=cnt, bit_count=12, descending=True)
+        check(all(np.array_equal(a.cpu().numpy(), w) for a, w in zip(o, want)),
+              f"sort(u16 keys, count < n, bit_count=12, descending, method={method!r}), "
+              "2^22 == golden")
+    del o, u16
+
     # prefix_sum at the headline size
     pu = rand_u32(HEADLINE_N)
     for dtype in (torch.uint32, torch.int32):
@@ -379,39 +503,120 @@ def run(dev) -> None:
                                      keys, warmup=2, iters=10) * 1e3
     prefix_ms = device_time(trt.prefix_sum, pu, warmup=2, iters=10) * 1e3
 
-    # Replay the headline sort's network (2 columns: key, rank) call by call,
-    # each call on the same input through the kernel and the plain version.
-    # The least bytes a call must move on this data: every key column read
-    # once, and for each element the call moves, its other columns read and
-    # all its columns written (an element left in place needs no write).
-    n_arr, n_keys = 2, 2
-    tile = bitonic.resolve_tile(HEADLINE_N, n_arr)
-    x = torch.stack([keys.view(torch.int32), iota.view(torch.int32)])
+    def t_ms(fn, *args):
+        return device_time(fn, *args, warmup=2, iters=10) * 1e3
+
+    # 64-bit and bfloat16 sorts against torch.sort of the same keys; the
+    # bounds: read the inputs and write the outputs once, and for the radix
+    # engine its passes (K5 reads the key column, K6 reads and writes every
+    # column; 3 columns for 64-bit key+value, 2 keys-only; 1 and 2 for 16-bit)
+    nh = HEADLINE_N
+    w16 = b16.view(torch.int16).to(torch.int32) & 0xFFFF
+    wide = {
+        "n": nh,
+        "ms": t_ms(lambda k, v: trt.sort(k, v, values_are_ranks=True), k64, iota),
+        "keys_only_ms": t_ms(trt.sort, k64),
+        "radix_ms": t_ms(lambda k, v: trt.sort(k, v, method="radix"), k64, iota),
+        "radix_keys_only_ms": t_ms(lambda k: trt.sort(k, method="radix"), k64),
+        "library_ms": t_ms(lambda k: torch.sort(k.view(torch.int64) ^ common.SIGN_I64,
+                                                stable=True), k64),
+        "library": "torch.sort(stable=True) on the biased int64 keys",
+        "is_sorted_ms": t_ms(trt.is_sorted, r64k),
+        "bound_ms": bound(2 * 12 * nh, 0)[0],
+        "keys_only_bound_ms": bound(2 * 8 * nh, 0)[0],
+        "radix_engine_bound_ms": 32 * (bound(4 * nh, 0)[0] + bound(2 * 3 * 4 * nh, 0)[0]),
+        "radix_keys_only_engine_bound_ms": 32 * (bound(4 * nh, 0)[0]
+                                                 + bound(2 * 2 * 4 * nh, 0)[0]),
+        "launches_per_sort": per_case["u64 k+rank auto 2^26"],
+        "launches_per_keys_only_sort": per_case["u64 keys-only auto 2^26"],
+        "radix_launches_per_sort": per_case["u64 k+rank radix 2^26"],
+        "launches_per_gate": per_case["u64 check_order sorted auto 2^26"],
+    }
+    keys16 = {
+        "n": nh, "dtype": "bfloat16",
+        "ms": t_ms(lambda k, v: trt.sort(k, v, values_are_ranks=True), b16, iota),
+        "keys_only_ms": t_ms(trt.sort, b16),
+        "radix_ms": t_ms(lambda k, v: trt.sort(k, v, method="radix"), b16, iota),
+        "radix_keys_only_ms": t_ms(lambda k: trt.sort(k, method="radix"), b16),
+        "library_ms": t_ms(lambda w: torch.sort(w, stable=True), w16),
+        "library": "torch.sort(stable=True) on the u16 patterns widened to int32",
+        "bound_ms": bound(2 * 6 * nh, 0)[0],
+        "keys_only_bound_ms": bound(2 * 2 * nh, 0)[0],
+        "radix_engine_bound_ms": 8 * (bound(4 * nh, 0)[0] + bound(2 * 2 * 4 * nh, 0)[0]),
+        "radix_keys_only_engine_bound_ms": 8 * (bound(4 * nh, 0)[0] + bound(2 * 4 * nh, 0)[0]),
+        "launches_per_sort": per_case["bf16 k+iota auto 2^26"],
+        "launches_per_keys_only_sort": per_case["bf16 keys-only auto 2^26"],
+        "radix_launches_per_sort": per_case["bf16 k+iota radix 2^26"],
+    }
+    del w16
+
+    # Replay a sort's network call by call, each call on the same input
+    # through the kernel and the plain version. The least bytes a call must
+    # move on this data: every key column read once, and for each element
+    # the call moves, its other columns read and all its columns written
+    # (an element left in place needs no write).
     kind_name = {"tile": "bitonic_tile_kernel", "global": "bitonic_global_stage_kernel"}
-    acc = {k.name: {"k": [], "p": [], "bytes": 0, "ops": 0} for k in _build.KERNELS}
-    for call in bitonic.sort_schedule(HEADLINE_N, tile):
-        name = kind_name[call[0]]
-        a = acc[name]
-        stages = call[1] if call[0] == "tile" else [call[1:]]
-        want = timed(lambda: bitonic.stages_plain(x.clone(), stages, n_keys), a["p"])
-        got = x.clone()
-        timed(lambda: bitonic.run_schedule(got, [call], n_keys=n_keys, tile=tile), a["k"])
-        err = u32_err(got, want)
-        max_err[name] = max(max_err[name], err)
-        if err:
-            raise CheckFailed(f"K1 {call} differs from plain at 2^26")
-        moved = int((got != x).any(dim=0).sum())
-        a["bytes"] += (n_keys * 4 * HEADLINE_N + moved * (n_arr - n_keys) * 4
-                       + moved * n_arr * 4)
-        a["ops"] += len(stages) * (HEADLINE_N // 2) * n_keys
-        x = got
-        del want
+
+    def replay_network(x, n_keys, label):
+        n_arr, n = x.shape
+        tile = bitonic.resolve_tile(n, n_arr)
+        acc = {name: {"k": [], "p": [], "bytes": 0, "ops": 0} for name in kind_name.values()}
+        for call in bitonic.sort_schedule(n, tile):
+            name = kind_name[call[0]]
+            a = acc[name]
+            stages = call[1] if call[0] == "tile" else [call[1:]]
+            want = timed(lambda: bitonic.stages_plain(x.clone(), stages, n_keys), a["p"])
+            got = x.clone()
+            timed(lambda: bitonic.run_schedule(got, [call], n_keys=n_keys, tile=tile), a["k"])
+            err = u32_err(got, want)
+            max_err[name] = max(max_err[name], err)
+            if err:
+                raise CheckFailed(f"K1 {call} differs from plain on the {label} network")
+            moved = int((got != x).any(dim=0).sum())
+            a["bytes"] += n_keys * 4 * n + moved * (n_arr - n_keys) * 4 + moved * n_arr * 4
+            a["ops"] += len(stages) * (n // 2) * n_keys
+            x = got
+            del want
+        for name, a in acc.items():
+            a["ms"], a["plain_ms"] = elapsed_ms(a["k"]), elapsed_ms(a["p"])
+            calls = len(a["ms"])
+            print(json.dumps({"calls_of": name, "network": label, "columns": n_arr,
+                              "n_keys": n_keys, "n": n, "tile": tile, "calls": calls,
+                              "ms_sum": sum(a["ms"]), "ms_min": min(a["ms"]),
+                              "ms_max": max(a["ms"]), "plain_ms_sum": sum(a["plain_ms"]),
+                              "bound_ms_sum": bound(a["bytes"], a["ops"])[0],
+                              "ms_each": a["ms"] if calls <= 4 else None}))
+        return x, acc, tile
+
+    n_arr, n_keys = 2, 2
+    x, acc, tile = replay_network(torch.stack([keys.view(torch.int32), iota.view(torch.int32)]),
+                                  n_keys, "u32 key+rank 2^26")
     check(same(x[0], rk) and same(x[1], rv),
           f"K1 == plain per call on the headline network (2^26, 2 columns, tile {tile})")
-    del x
+    rows = {}
+    for name, a in acc.items():
+        calls = len(a["ms"])
+        rows[name] = dict(ms=sum(a["ms"]) / calls, plain_ms=sum(a["plain_ms"]) / calls,
+                          bytes=a["bytes"] / calls, ops=a["ops"] / calls, library_ms=None)
+    # the 64-bit key + rank network: (hi, lo, rank), n_keys 3
+    x, _, t3 = replay_network(torch.stack([*common.to_sortable_u64_cols(k64),
+                                           iota.view(torch.int32)]), 3, "u64 key+rank 2^26")
+    check(same(common.from_sortable_u64_cols(x[0], x[1], torch.uint64), r64k) and same(x[2], r64v),
+          f"K1 == plain per call on the u64 key+rank network (2^26, 3 columns, tile {t3})")
+    # the widest network: bit_count 40 with u64 values, 7 columns at 2^22
+    u_hi, u_lo = common.to_sortable_u64_cols(wk)
+    m_hi, m_lo = map(common.i32, common.bit_mask_cols(40))
+    x, _, t7 = replay_network(torch.stack([
+        u_hi & m_hi, u_lo & m_lo, torch.arange(OPTION_N, dtype=torch.int32, device=dev),
+        u_hi, u_lo, *common.values_to_u32_cols(wv)]), 3, "u64 bit_count=40 u64 values 2^22")
+    check(np.array_equal(common.from_sortable_u64_cols(x[3], x[4], torch.uint64).cpu().numpy(), gk)
+          and np.array_equal(common.values_from_u32_cols((x[5], x[6]), torch.uint64)
+                             .cpu().numpy(), gv),
+          f"K1 == plain per call on the 7-column network (2^22, n_keys 3, tile {t7}) == golden")
+    del x, wk, wv, gk, gv, u_hi, u_lo
     u = ok.view(torch.int32)
     f_ = checksort.FAST_CHECK_ELEMENTS
-    a = acc["disorder_kernel"]
+    a = {"k": [], "p": [], "bytes": 0, "ops": 0}
     for part in (u[:f_], u[f_ - 1:]):
         got = timed(lambda: checksort.disorder_kernel(part), a["k"])
         want = timed(lambda: checksort.disorder_plain(part), a["p"])
@@ -419,19 +624,11 @@ def run(dev) -> None:
         a["bytes"] += 4 * part.numel() + 4
         a["ops"] += part.numel() - 1
     check(max_err["disorder_kernel"] == 0, "K2 == plain on the gate's two calls at 2^26")
-
-    rows = {}
-    for name in ("bitonic_tile_kernel", "bitonic_global_stage_kernel", "disorder_kernel"):
-        a = acc[name]
-        k_ms, p_ms = elapsed_ms(a["k"]), elapsed_ms(a["p"])
-        calls = len(k_ms)
-        print(json.dumps({"calls_of": name, "calls": calls, "ms_sum": sum(k_ms),
-                          "ms_min": min(k_ms), "ms_max": max(k_ms),
-                          "plain_ms_sum": sum(p_ms),
-                          "bound_ms_sum": bound(a["bytes"], a["ops"])[0],
-                          "ms_each": k_ms if calls <= 4 else None}))
-        rows[name] = dict(ms=sum(k_ms) / calls, plain_ms=sum(p_ms) / calls,
-                          bytes=a["bytes"] / calls, ops=a["ops"] / calls, library_ms=None)
+    k_ms, p_ms = elapsed_ms(a["k"]), elapsed_ms(a["p"])
+    print(json.dumps({"calls_of": "disorder_kernel", "calls": 2, "ms_each": k_ms,
+                      "plain_ms_sum": sum(p_ms), "bound_ms_sum": bound(a["bytes"], a["ops"])[0]}))
+    rows["disorder_kernel"] = dict(ms=sum(k_ms) / 2, plain_ms=sum(p_ms) / 2,
+                                   bytes=a["bytes"] / 2, ops=a["ops"] / 2, library_ms=None)
 
     # Replay the headline radix sort (key, iota) pass by pass, each kernel
     # call on the same input as its plain version.
@@ -482,6 +679,16 @@ def run(dev) -> None:
         plain_ms=ms(lambda x: radix.reorder_pass_plain(x, offs0, bit=0, tile=rtile, out=yr),
                     xr, iters=3),
         bytes=2 * 2 * 4 * n + 4 * radix.R * nb, ops=2 * n, library_ms=None)
+    # K3 at the headline size, on the sorted u64 keys (a gate's full read)
+    hi64, lo64 = common.to_sortable_u64_cols(r64k)
+    max_err["disorder_cols_kernel"] = max(max_err["disorder_cols_kernel"], u32_err(
+        checksort.disorder_cols_kernel(hi64, lo64), checksort.disorder_cols_plain(hi64, lo64)))
+    rows["disorder_cols_kernel"] = dict(
+        ms=ms(checksort.disorder_cols_kernel, hi64, lo64),
+        plain_ms=ms(checksort.disorder_cols_plain, hi64, lo64, iters=5),
+        bytes=2 * 4 * n + 4, ops=2 * (n - 1), library_ms=None)
+    check(max_err["disorder_cols_kernel"] == 0, "K3 == plain on the sorted u64 keys at 2^26")
+    del hi64, lo64
     before = _build.SCAN.launches
     radix.bucket_offsets(hist0)
     table_launches = _build.SCAN.launches - before
@@ -495,7 +702,21 @@ def run(dev) -> None:
                       "ms": ms(lambda x: radix.reorder_pass(x, offs0, bit=0, tile=rtile,
                                                             out=yr[:1]), xr[:1]),
                       "bound_ms": bound(2 * 4 * n + 4 * radix.R * nb, 2 * n)[0]}))
-    del xr, yr
+    # pass 0 of the 64-bit key + rank radix sort: lo, carrying hi and the rank
+    x3 = torch.stack([*common.to_sortable_u64_cols(k64)[::-1], iota.view(torch.int32)])
+    y3 = torch.empty_like(x3)
+    offs3 = radix.bucket_offsets(radix.digit_histogram(x3[0], bit=0, tile=rtile))
+    want = radix.reorder_pass_plain(x3, offs3, bit=0, tile=rtile, out=torch.empty_like(x3))
+    err = u32_err(radix.reorder_pass(x3, offs3, bit=0, tile=rtile, out=y3), want)
+    max_err["reorder_kernel"] = max(max_err["reorder_kernel"], err)
+    check(err == 0, "K6 == plain on pass 0 of the u64 key+rank radix sort (2^26, 3 columns)")
+    print(json.dumps({"calls_of": "reorder_kernel", "columns": 3,
+                      "ms": ms(lambda x: radix.reorder_pass(x, offs3, bit=0, tile=rtile,
+                                                            out=y3), x3),
+                      "plain_ms": ms(lambda x: radix.reorder_pass_plain(
+                          x, offs3, bit=0, tile=rtile, out=y3), x3, iters=3),
+                      "bound_ms": bound(2 * 3 * 4 * n + 4 * radix.R * nb, 2 * n)[0]}))
+    del xr, yr, x3, y3, want
 
     kernels = []
     for k in _build.KERNELS:
@@ -532,6 +753,8 @@ def run(dev) -> None:
         "peak_mem_bytes_all": torch.cuda.max_memory_allocated(),
         "seconds_total": time.perf_counter() - t_start,
     }}))
+    print(json.dumps({"sort64": wide}))
+    print(json.dumps({"keys16": keys16}))
     print(json.dumps({"kernels": kernels}))
 
 

@@ -63,7 +63,7 @@ def test_merge_padded_matches_jax():
 
 @pytest.mark.parametrize("n_arr,n_keys", [
     (1, 1), (2, 1), (2, 2), (3, 1), (3, 2), (3, 3), (4, 1), (4, 2), (4, 3),
-    (5, 1), (5, 2), (5, 3),
+    (5, 1), (5, 2), (5, 3), (6, 1), (6, 2), (6, 3), (7, 1), (7, 2), (7, 3),
 ])
 def test_column_configs_match_numpy(n_arr, n_keys):
     rng = np.random.default_rng(10 * n_arr + n_keys)
@@ -112,7 +112,7 @@ def test_wrappers_refuse_what_the_kernel_does_not_take():
     with pytest.raises(ValueError):
         bitonic.global_stage(x, 4, 256, n_keys=1)  # 2j > n
     with pytest.raises(ValueError):
-        bitonic.global_stage(torch.zeros((6, 256), dtype=torch.int32), 4, 2, n_keys=1)
+        bitonic.global_stage(torch.zeros((8, 256), dtype=torch.int32), 4, 2, n_keys=1)
     with pytest.raises(ValueError):
         bitonic.global_stage(x, 4, 2, n_keys=3)
     with pytest.raises(ValueError):

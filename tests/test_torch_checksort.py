@@ -91,8 +91,11 @@ def test_tiny_inputs_and_errors():
         trt.is_sorted(np.zeros(8, np.uint32), bit_count=7, device="cpu")
     with pytest.raises(ValueError):
         trt.is_sorted(np.zeros((2, 4), np.uint32), device="cpu")
-    with pytest.raises(NotImplementedError):
-        trt.is_sorted(np.zeros(8, np.uint64), device="cpu")
+    assert trt.is_sorted(np.zeros(8, np.uint64), device="cpu")
+    with pytest.raises(ValueError):
+        trt.is_sorted(np.zeros(8, np.uint64), bit_count=68, device="cpu")
+    with pytest.raises(ValueError):
+        trt.disorder_count(np.zeros(8, np.int16), bit_count=20, device="cpu")
     with pytest.raises(NotImplementedError):
         trt.disorder_count(np.zeros(8, np.uint32), device="cpu", mesh=object())
     with pytest.raises(TypeError):

@@ -5,6 +5,7 @@ import ast
 import pathlib
 
 import jax.numpy as jnp
+import ml_dtypes
 import numpy as np
 import pytest
 import torch
@@ -16,6 +17,7 @@ from tpu_radix_sort_torch import _build
 from tpu_radix_sort_torch.models import golden
 from tpu_radix_sort_torch.ops import common
 from tpu_radix_sort_torch.utils import dispatch, interop
+import torch_golden_ref as golden_ref
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 CPU = torch.device("cpu")
@@ -86,8 +88,13 @@ def test_validators():
         with pytest.raises(ValueError):
             common.validate_bit_count(bad)
     common.validate_bit_count_for(torch.float32, 12)
-    with pytest.raises(NotImplementedError):
-        common.validate_bit_count_for(torch.uint16, 16)
+    # the range follows the key's width: [4, 16] for 16-bit keys, [4, 64]
+    # for 64-bit keys
+    common.validate_bit_count_for(torch.uint16, 16)
+    common.validate_bit_count_for(torch.float64, 64)
+    for dtype, bad in ((torch.bfloat16, 20), (torch.uint64, 68), (torch.int64, 6)):
+        with pytest.raises(ValueError):
+            common.validate_bit_count_for(dtype, bad)
     with pytest.raises(TypeError):
         common.check_key_dtype(torch.int8)
     with pytest.raises(TypeError):
@@ -95,28 +102,45 @@ def test_validators():
     common.validate_value_dtype(torch.zeros(2, dtype=torch.float64))
 
 
-@pytest.mark.parametrize("dtype", [np.uint32, np.int32, np.float32])
+@pytest.mark.parametrize("dtype", [np.uint32, np.int32, np.float32,
+                                   np.uint16, np.int16, np.float16, "bfloat16",
+                                   np.uint64, np.int64, np.float64])
 def test_golden_matches_jax_golden(dtype):
+    """The port's golden against the JAX package's, at every key width;
+    bfloat16 reaches the port's golden as its u16 patterns with
+    `bf16_bits`, and the JAX golden as an ml_dtypes array."""
     rng = np.random.default_rng(2)
-    k = (rng.integers(0, 300, 3000, dtype=np.uint64).astype(np.uint32)
-         | np.uint32(0x40000000)).view(dtype)
+    bf16 = dtype == "bfloat16"
+    width = 16 if bf16 else 8 * np.dtype(dtype).itemsize
+    ut = {16: np.uint16, 32: np.uint32, 64: np.uint64}[width]
+    # few distinct low bits (ties under every mask), a fixed exponent bit,
+    # and the sign bit on every 7th key (negatives under total order)
+    u = rng.integers(0, 300, 3000, dtype=np.uint64).astype(ut) | ut(1 << (width - 2))
+    u[::7] |= ut(1 << (width - 1))
+    k = u if bf16 else u.view(dtype)
+    jk = u.view(ml_dtypes.bfloat16) if bf16 else k
+    flag = {"bf16_bits": True} if bf16 else {}
     v = np.arange(3000, dtype=np.uint32)
-    for kw in ({}, {"count": 1700}, {"bit_count": 8}, {"descending": True},
-               {"bit_count": 12, "descending": True, "count": 2000}):
-        got = golden.golden_sort(k, v, **kw)
-        want = jax_golden.golden_sort(k, v, **kw)
-        assert all(np.array_equal(a.view(np.uint32), b.view(np.uint32))
+    kws = [{}, {"count": 1700}, {"bit_count": 8}, {"descending": True},
+           {"bit_count": 12, "descending": True, "count": 2000}]
+    if width == 64:
+        kws += [{"bit_count": 40}, {"bit_count": 60, "descending": True, "count": 2500}]
+    for kw in kws:
+        got = golden.golden_sort(k, v, **kw, **flag)
+        want = jax_golden.golden_sort(jk, v, **kw)
+        assert all(np.array_equal(a.view(np.uint8), b.view(np.uint8))
                    for a, b in zip(got, want)), kw
-        s = got[0]
+        s, js = got[0], want[0]
         for ckw in ({}, {"total_order": True}, {"descending": True}):
             ckw = {**ckw, **{a: b for a, b in kw.items() if a != "descending"}}
-            assert (golden.golden_is_sorted(s, **ckw)
-                    == jax_golden.golden_is_sorted(s, **ckw)), ckw
-    # total_order: the port's golden sorts by the bijection (JAX's golden
-    # has no total_order sort; its bijection mirror is _total_order_u32)
-    order = np.argsort(jax_golden._total_order_u32(k), kind="stable")
-    assert np.array_equal(golden.golden_sort(k, total_order=True).view(np.uint32),
-                          k[order].view(np.uint32))
+            assert (golden.golden_is_sorted(s, **ckw, **flag)
+                    == jax_golden.golden_is_sorted(js, **ckw)), ckw
+        # total_order: the JAX golden has no such sort; its bijection
+        # mirror, masked and flipped by its own golden_sort, gives the order
+        want = golden_ref.golden_sort(jk, v, total_order=True, **kw)
+        got = golden.golden_sort(k, v, total_order=True, **kw, **flag)
+        assert all(np.array_equal(a.view(np.uint8), b.view(np.uint8))
+                   for a, b in zip(got, want)), ("total_order", kw)
 
 
 def test_interop_round_trip_and_device_policy():
@@ -130,7 +154,7 @@ def test_interop_round_trip_and_device_policy():
 
 
 def test_choose_tile_fits_shared_memory():
-    for n_arr in range(1, 6):
+    for n_arr in range(1, 8):
         t = dispatch.choose_tile(1 << 26, n_arr)
         assert t & (t - 1) == 0
         assert n_arr * t * 4 <= dispatch.SMEM_BUDGET_BYTES < n_arr * 2 * t * 4
@@ -166,12 +190,16 @@ def test_cpu_runs_launch_no_kernel_and_numpy_needs_a_device(monkeypatch):
     assert np.array_equal(rk.numpy(), golden.golden_sort(k))
     assert not trt.is_sorted(k, device="cpu")
     int(trt.disorder_count(torch.from_numpy(k)))
+    k64 = k.astype(np.uint64) << np.uint64(20)
+    assert np.array_equal(trt.sort(k64, device="cpu", check_order=True).numpy(),
+                          golden.golden_sort(k64))
+    assert not trt.is_sorted(k64, device="cpu")
     assert np.array_equal(trt.prefix_sum(v, device="cpu").numpy(),
                           golden.golden_prefix_sum(v))
     assert _build.launch_counts() == {
         "bitonic_tile_kernel": 0, "bitonic_global_stage_kernel": 0,
-        "disorder_kernel": 0, "scan_kernel": 0, "digit_histogram_kernel": 0,
-        "reorder_kernel": 0}
+        "disorder_kernel": 0, "disorder_cols_kernel": 0, "scan_kernel": 0,
+        "digit_histogram_kernel": 0, "reorder_kernel": 0}
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for fn in (lambda: trt.sort(k), lambda: trt.argsort(k),
                lambda: trt.sort(k, method="radix"),

@@ -1,5 +1,6 @@
-"""K1, K2, K4, K5 and K6 on the CUDA card against their plain PyTorch
-versions, and the sort engines on the card against golden and `torch.sort`.
+"""K1-K6 on the CUDA card against their plain PyTorch versions, and the
+sort engines on the card against golden and `torch.sort`, for 32-, 64- and
+16-bit keys.
 
 Marked `gpu`; each test asks the `cuda` fixture for the card and skips where
 there is none. On a CUDA machine without JAX, run them apart from the rest of
@@ -39,6 +40,7 @@ def _columns(rng, n_arr, n_keys, n):
 
 @pytest.mark.parametrize("n_arr,n_keys", [
     (1, 1), (2, 1), (2, 2), (3, 1), (3, 2), (3, 3), (4, 2), (4, 3), (5, 2), (5, 3),
+    (6, 3), (7, 2), (7, 3),
 ])
 def test_bitonic_kernels_match_plain(cuda, n_arr, n_keys):
     rng = np.random.default_rng(10 * n_arr + n_keys)
@@ -114,7 +116,7 @@ def test_scan_kernel_matches_plain(cuda, n, inclusive):
     assert torch.equal(got, scan.scan_plain(t, inclusive=inclusive))
 
 
-@pytest.mark.parametrize("n_arr", [1, 2, 3, 4])
+@pytest.mark.parametrize("n_arr", [1, 2, 3, 4, 5, 6])
 @pytest.mark.parametrize("tile", [32, 256, 4096, 1 << 16])
 def test_radix_kernels_match_plain(cuda, n_arr, tile):
     rng = np.random.default_rng(n_arr * tile)
@@ -150,3 +152,55 @@ def test_radix_sort_on_card_matches_torch_sort(cuda):
     small = k.view(torch.int32) & 15
     out, _, n_run = radix.sort_u32(small, check_order=True, return_passes=True)
     assert n_run == 2 and torch.equal(out, torch.sort(small)[0])
+
+
+@pytest.mark.parametrize("kind", ["sorted", "reversed", "random", "equal hi", "boundary", "short"])
+def test_disorder_cols_kernel_matches_plain(cuda, kind):
+    """K3 on the (hi, lo) view of u64 keys. 'boundary': one inversion whose
+    pair (255, 256) straddles the first two 256-thread CUDA blocks."""
+    rng = np.random.default_rng(8)
+    n = 3 if kind == "short" else (1 << 20) + 3
+    u = rng.integers(0, 2**64, n, dtype=np.uint64)
+    if kind == "equal hi":
+        u = (u & np.uint64(0xFFFFFFFF)) | (np.uint64(77) << np.uint64(32))
+    if kind in ("sorted", "boundary"):
+        u.sort()
+    elif kind == "reversed":
+        u = np.sort(u)[::-1].copy()
+    if kind == "boundary":
+        u[256] = u[255] - np.uint64(1)  # same hi word, smaller lo word
+        assert u[256] >> np.uint64(32) == u[255] >> np.uint64(32)
+    hi = torch.from_numpy((u >> np.uint64(32)).astype(np.uint32).view(np.int32)).to(cuda)
+    lo = torch.from_numpy(u.astype(np.uint32).view(np.int32)).to(cuda)
+    before = _build.DISORDER_COLS.launches
+    got = checksort.disorder_cols_kernel(hi, lo)
+    assert _build.DISORDER_COLS.launches == before + 1
+    assert torch.equal(got, checksort.disorder_cols_plain(hi, lo))
+    assert int(got) == int(np.count_nonzero(u[:-1] > u[1:]))
+
+
+@pytest.mark.parametrize("method", ["auto", "radix"])
+def test_sort64_on_card_matches_torch_sort(cuda, method):
+    """u64 key + iota (the 3-column (hi, lo, rank) network) and the 7-column
+    / 6-column bit_count=40 path with u64 values, against torch.sort and
+    golden; the 64-bit gate runs K3."""
+    rng = np.random.default_rng(12)
+    n = (1 << 18) + 3
+    k = rng.integers(0, 2**64, n, dtype=np.uint64)
+    k[: n // 2] = (k[: n // 2] & np.uint64(0xFFFF)) | (np.uint64(5) << np.uint64(32))
+    kt = torch.from_numpy(k).to(cuda)
+    iota = torch.arange(n, dtype=torch.int32, device=cuda).view(torch.uint32)
+    ref, idx = torch.sort(kt.view(torch.int64) ^ (-2**63), stable=True)
+    ok, ov = trt.sort(kt, iota, method=method, values_are_ranks=True)
+    assert torch.equal(ok.view(torch.int64), ref ^ (-2**63))
+    assert torch.equal(ov.view(torch.int32), idx.to(torch.int32))
+    v = rng.integers(0, 2**64, n, dtype=np.uint64)
+    ok, ov = trt.sort(kt, torch.from_numpy(v).to(cuda), method=method, bit_count=40)
+    gk, gv = golden_sort(k, v, bit_count=40)
+    assert np.array_equal(ok.cpu().numpy(), gk) and np.array_equal(ov.cpu().numpy(), gv)
+    srt = torch.from_numpy(np.sort(k)).to(cuda)
+    c0, h0 = _build.DISORDER_COLS.launches, _build.DIGIT_HISTOGRAM.launches
+    assert torch.equal(trt.sort(srt, method=method, check_order=True), srt)
+    assert _build.DISORDER_COLS.launches == c0 + 2 and _build.DIGIT_HISTOGRAM.launches == h0
+    assert trt.is_sorted(srt) and not trt.is_sorted(kt)
+    assert int(trt.disorder_count(kt)) == int(np.count_nonzero(k[:-1] > k[1:]))

@@ -193,10 +193,10 @@ def test_input_errors():
         (ValueError, lambda: radix.reorder_pass(x, offs, bit=0, tile=128)),
         (ValueError, lambda: radix.reorder_pass(x, offs[:, :1], bit=0, tile=64)),
         (ValueError, lambda: radix.reorder_pass(x, offs, bit=0, tile=64, out=x)),
-        (ValueError, lambda: radix.reorder_pass(torch.zeros((5, 100), dtype=torch.int32),
+        (ValueError, lambda: radix.reorder_pass(torch.zeros((7, 100), dtype=torch.int32),
                                                 offs, bit=0, tile=64)),
         (TypeError, lambda: radix.reorder_pass(x.long(), offs, bit=0, tile=64)),
-        (ValueError, lambda: radix.sort_u32(x[0], (x[1],) * 4)),
+        (ValueError, lambda: radix.sort_u32(x[0], (x[1],) * 6)),
         (ValueError, lambda: radix.sort_u32(x[0], (x[1, :50],))),
         (ValueError, lambda: radix.sort_u32(x[0], bit_count=7)),
         (ValueError, lambda: trt.sort(np.zeros(8, np.uint32), method="radix", tile=100,

@@ -202,8 +202,10 @@ def test_kernel_classes():
     assert trt.RadixSortTextureKernel is trt.RadixSortPackedKernel
     with pytest.raises(ValueError):
         trt.RadixSortKernel(count=8, bit_count=7)
-    with pytest.raises(NotImplementedError):
-        trt.RadixSortKernel(count=8, key_dtype=torch.uint64)
+    # 64-bit keys: bit_count defaults to 64 and ranges over [4, 64]
+    assert trt.RadixSortKernel(count=8, key_dtype=torch.uint64).bit_count == 64
+    with pytest.raises(ValueError):
+        trt.RadixSortKernel(count=8, key_dtype=torch.uint64, bit_count=68)
     radix_kern = trt.RadixSortKernel(count=800, has_values=True, bit_count=12,
                                      method="radix", device="cpu").compile()
     assert _eq(radix_kern.dispatch(k, v), golden_sort(k, v, count=800, bit_count=12))
@@ -228,8 +230,8 @@ def test_input_errors_match_jax_types():
         (ValueError, lambda: trt.sort(z, np.zeros(8, np.int64), device="cpu",
                                       values_are_ranks=True)),
         (ValueError, lambda: trt.sort_packed(np.zeros((4, 3), np.uint32), device="cpu")),
-        (NotImplementedError, lambda: trt.sort(np.zeros(8, np.uint16), device="cpu")),
-        (NotImplementedError, lambda: trt.sort(np.zeros(8, np.float64), device="cpu")),
+        (ValueError, lambda: trt.sort(np.zeros(8, np.uint16), bit_count=20, device="cpu")),
+        (ValueError, lambda: trt.sort(np.zeros(8, np.float64), bit_count=68, device="cpu")),
         (NotImplementedError, lambda: trt.sort(z, device="cpu", mesh=object())),
     ]
     for exc, fn in cases:

@@ -1,12 +1,14 @@
 """tpu_radix_sort_torch — the PyTorch/CUDA port of tpu_radix_sort.
 
 Same public surface and byte-exact outputs as the JAX package, for the
-slices ported so far (ROADMAP.md): the flat single-device sort of 32-bit
-keys through a hand-written bitonic network (``csrc/bitonic.cu``) or, with
-``method='radix'``, the 4-way LSD radix sort (``csrc/radix.cu``,
-``csrc/scan.cu``); the order check (``csrc/disorder.cu``); and the prefix
-sum (``csrc/scan.cu``). Tensors run where they lie; numpy input goes to the
-CUDA card unless ``device=`` says otherwise.
+slices ported so far (ROADMAP.md): the flat single-device sort of 16-, 32-
+and 64-bit keys through a hand-written bitonic network (``csrc/bitonic.cu``)
+or, with ``method='radix'``, the 4-way LSD radix sort (``csrc/radix.cu``,
+``csrc/scan.cu``); the order check of one u32 column or of the (hi, lo)
+pair of 64-bit keys (``csrc/disorder.cu``); and the prefix sum
+(``csrc/scan.cu``). Tensors run where they lie; numpy input goes to the
+CUDA card unless ``device=`` says otherwise (bfloat16 crosses as its bits,
+``utils/interop.py``).
 """
 from .api import (
     PrefixSumKernel,

@@ -129,6 +129,9 @@ BITONIC_GLOBAL_STAGE = Kernel(
 DISORDER = Kernel(
     "disorder_kernel", "disorder", "trs_disorder_count", [_P, _I64, _P, _P],
 )
+DISORDER_COLS = Kernel(
+    "disorder_cols_kernel", "disorder", "trs_disorder_count_cols", [_P, _P, _I64, _P, _P],
+)
 SCAN = Kernel(
     "scan_kernel", "scan", "trs_scan_pass", [_I32, _P, _I64, _I64, _P, _P, _I32, _P],
 )
@@ -139,7 +142,8 @@ DIGIT_HISTOGRAM = Kernel(
 REORDER = Kernel(
     "reorder_kernel", "radix", "trs_reorder", [_P, _P, _I64, _I32, _I32, _I64, _P, _P],
 )
-KERNELS = (BITONIC_TILE, BITONIC_GLOBAL_STAGE, DISORDER, SCAN, DIGIT_HISTOGRAM, REORDER)
+KERNELS = (BITONIC_TILE, BITONIC_GLOBAL_STAGE, DISORDER, DISORDER_COLS, SCAN,
+           DIGIT_HISTOGRAM, REORDER)
 
 
 def reset_launches() -> None:

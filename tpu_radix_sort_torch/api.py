@@ -60,8 +60,16 @@ class RadixSortKernel:
     ):
         del local_shuffle, avoid_bank_conflicts, axis_name  # accepted, ignored
         common.check_key_dtype(key_dtype)
-        bit_count = 32 if bit_count is None else bit_count
-        common.validate_bit_count(bit_count)
+        # bit_count defaults to 64 for 64-bit keys, whose range is [4, 64],
+        # and to 32 otherwise. As in the JAX class, a 16-bit key_dtype also
+        # gets 32, which the sort refuses at dispatch (ROADMAP Queue 3).
+        wide = common.is_64bit_key_dtype(key_dtype)
+        if bit_count is None:
+            bit_count = 64 if wide else 32
+        if wide:
+            common.validate_bit_count_64(bit_count)
+        else:
+            common.validate_bit_count(bit_count)
         sort_ops._resolve_method(method)
         common.reject_mesh(mesh)
         self.count = int(count)

@@ -138,7 +138,9 @@ cudaError_t launch_global(unsigned* x, unsigned n, unsigned k, unsigned j,
   return cudaGetLastError();
 }
 
-// Dispatch over (N_ARR, N_KEYS): N_ARR in 1..5, N_KEYS in 1..min(3, N_ARR).
+// Dispatch over (N_ARR, N_KEYS): N_ARR in 1..7, N_KEYS in 1..min(3, N_ARR).
+// Seven columns are the widest 64-bit path: (hi, lo, tie, the full key's
+// hi and lo, an 8-byte value's hi and lo).
 #define TRS_DISPATCH(FN, ...)                                                   \
   switch (n_arr * 10 + n_keys) {                                               \
     case 11: return FN<1, 1>(__VA_ARGS__);                                     \
@@ -153,6 +155,12 @@ cudaError_t launch_global(unsigned* x, unsigned n, unsigned k, unsigned j,
     case 51: return FN<5, 1>(__VA_ARGS__);                                     \
     case 52: return FN<5, 2>(__VA_ARGS__);                                     \
     case 53: return FN<5, 3>(__VA_ARGS__);                                     \
+    case 61: return FN<6, 1>(__VA_ARGS__);                                     \
+    case 62: return FN<6, 2>(__VA_ARGS__);                                     \
+    case 63: return FN<6, 3>(__VA_ARGS__);                                     \
+    case 71: return FN<7, 1>(__VA_ARGS__);                                     \
+    case 72: return FN<7, 2>(__VA_ARGS__);                                     \
+    case 73: return FN<7, 3>(__VA_ARGS__);                                     \
     default: return cudaErrorInvalidValue;                                     \
   }
 

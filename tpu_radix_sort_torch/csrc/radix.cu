@@ -144,14 +144,15 @@ int trs_digit_histogram(const void* x, long long n, int bit, long long tile, voi
   return cudaGetLastError();
 }
 
-// src, dst: (n_arr, n) u32, row-major, not overlapping; offs: the exclusive
-// scan of the digit-major histogram of src's column 0 at `bit` with the
-// same tile, 4 * ceil(n / tile) u32.
+// src, dst: (n_arr, n) u32 with n_arr in 1..6 (the widest 64-bit key path),
+// row-major, not overlapping; offs: the exclusive scan of the digit-major
+// histogram of src's column 0 at `bit` with the same tile, 4 * ceil(n / tile)
+// u32.
 int trs_reorder(const void* src, void* dst, long long n, int n_arr, int bit, long long tile,
                 const void* offs, void* stream) {
   cudaError_t err = check_tile(n, tile, bit);
   if (err != cudaSuccess) return err;
-  if (n_arr < 1 || n_arr > 4) return cudaErrorInvalidValue;
+  if (n_arr < 1 || n_arr > 6) return cudaErrorInvalidValue;
   const unsigned nblocks = (unsigned)((n + tile - 1) / tile);
   const unsigned threads = tile < kMaxThreads ? (unsigned)tile : kMaxThreads;
   reorder_kernel<<<nblocks, threads, 0, (cudaStream_t)stream>>>(

@@ -28,7 +28,7 @@ from ..utils import dispatch
 from . import common
 
 LANES = 128  # smallest padded length: the JAX package's contract
-MAX_ARRAYS = 5
+MAX_ARRAYS = 7  # csrc/bitonic.cu TRS_DISPATCH; the widest 64-bit key path
 MAX_KEYS = 3
 MAX_STAGES_PER_CALL = 128  # kMaxStages in csrc/bitonic.cu
 MAX_TILE = 1 << 15  # phase 1 of a 2^15 tile is 120 stages

@@ -39,7 +39,9 @@ R = 1 << RADIX_BITS  # 4-way, as the reference (src/shaders/RadixSort.ts:61)
 CHECK_EVERY_PASSES = 2
 DEFAULT_TILE = 4096  # keys per CUDA block of K5 and K6
 MIN_TILE, MAX_TILE = 32, 1 << 16  # csrc/radix.cu check_tile
-MAX_ARRAYS = 4  # key, full key (bit_count < 32), one or two value columns
+# the 64-bit key path's widest: lo, carrying hi, the full key's (hi, lo)
+# (bit_count < 64) and an 8-byte value's (hi, lo)
+MAX_ARRAYS = 6
 MAX_LENGTH = 1 << 31  # offsets and positions stay u32 in the kernels
 
 
@@ -189,7 +191,7 @@ def sort_u32(mkeys, payloads=(), *, bit_count=32, tile=None, check_order=False,
     y = torch.empty_like(x)
     n_run = 0
     for i in range(bit_count // RADIX_BITS):
-        if check_order and i % CHECK_EVERY_PASSES == 0 and checksort._is_sorted_view(x[0]):
+        if check_order and i % CHECK_EVERY_PASSES == 0 and checksort.is_sorted_cols((x[0],)):
             break
         bit = i * RADIX_BITS
         offs = bucket_offsets(digit_histogram(x[0], bit=bit, tile=tile))

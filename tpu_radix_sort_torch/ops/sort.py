@@ -1,11 +1,14 @@
 """Top-level functional sort: feature assembly around the engines.
 
-Counterpart of ``tpu_radix_sort/ops/sort.py`` for 32-bit keys, with the same
-option surface: keys-only or key+value; sort only the first `count`
-elements, the rest untouched; `bit_count` in 4..32 (order by the low bits
-only, the full key carried along); uint32 keys, float32/int32 ordered by
-their u32 bit pattern or by true total order with `total_order=True`;
-stable ascending, or stable descending; `check_order` early exit.
+Counterpart of ``tpu_radix_sort/ops/sort.py``, with the same option surface:
+keys-only or key+value; sort only the first `count` elements, the rest
+untouched; `bit_count` in 4..the key's width (order by the low bits only,
+the full key carried along); uint32 keys, float32/int32 ordered by their u32
+bit pattern or by true total order with `total_order=True`; 16-bit keys
+(uint16/int16/float16/bfloat16) widened to their u16 pattern in a u32 lane;
+64-bit keys (uint64/int64/float64) as (hi, lo) columns through
+``ops/sort64.py``; stable ascending, or stable descending; `check_order`
+early exit.
 
 Engines (`method`): 'bitonic' (the hand-written network, kernel K1; what
 'auto' picks), 'radix' (the 4-way LSD radix sort, kernels K5, K4 and K6,
@@ -33,42 +36,41 @@ _METHODS = ("auto", "bitonic", "radix", "xla")
 SPLIT_MIN_N = 1 << 21
 
 
-def _bitonic_pad_sort(mkeys, *, stable, use_rank, ordered, tile):
+def _bitonic_pad_sort(key_cols, payloads, *, tie, tile):
     """Pad + sort through the bitonic engine, splitting non-pow2 inputs.
 
+    `key_cols` are 1-D int32 (u32 pattern) columns compared
+    lexicographically: (mkeys,) for 16- and 32-bit keys, (hi, lo) or (lo,)
+    for 64-bit keys. `tie` is None (not stable), ``"iota"`` (the global
+    index as tie-break) or a rank column (the `values_are_ranks` contract).
     Returns the padded sorted (n_cols, next_pow2(n)) int32 columns, layout
-    [masked key, tie (if stable), payloads...]. A range whose pow2 pad would
+    [key columns, tie (if any), payloads...]. A range whose pow2 pad would
     waste >= 33% is sorted as prefix + remainder (recursively) and combined
-    with one merge; the result is byte-exact because real (key, tie) tuples
-    are pairwise distinct and pads sort last.
+    with one merge; the result is byte-exact because real (keys, tie)
+    tuples are pairwise distinct and pads sort last.
     """
-    dev = mkeys.device
-    tail = ordered[1:] if use_rank else ordered
-    n_cols = 1 + (1 if stable else 0) + len(tail)
-    n_keys = 2 if stable else 1
+    dev = key_cols[0].device
+    rank = tie if isinstance(tie, torch.Tensor) else None
+    n_keys = len(key_cols) + (tie is not None)
+    n_cols = n_keys + len(payloads)
     sentinel = common.i32(common.SENTINEL_U32)
+    # pad tie = pad key = SENTINEL_U32: real max-key elements precede pads
+    # because their rank is < 0xFFFFFFFF (contract)
+    padded = tuple(key_cols) + (() if rank is None else (rank,))
 
     def build(lo, hi, pad_len):
         m = hi - lo
         x = torch.empty((n_cols, pad_len), dtype=torch.int32, device=dev)
-        x[0, :m] = mkeys[lo:hi]
-        x[0, m:] = sentinel
-        r = 1
-        if use_rank:
-            # pad tie = pad key = SENTINEL_U32: real max-key elements
-            # precede pads because their rank is < 0xFFFFFFFF (contract)
-            x[1, :m] = ordered[0][lo:hi]
-            x[1, m:] = sentinel
-            r = 2
-        elif stable:
+        for r, c in enumerate(padded):
+            x[r, :m] = c[lo:hi]
+            x[r, m:] = sentinel
+        if tie is not None and rank is None:
             # global index tie-break, continued past the real data so pads
             # sort after every real element of this part
-            x[1] = torch.arange(lo, lo + pad_len, dtype=torch.int32, device=dev)
-            r = 2
-        for p in tail:
+            x[len(key_cols)] = torch.arange(lo, lo + pad_len, dtype=torch.int32, device=dev)
+        for r, p in enumerate(payloads, n_keys):
             x[r, :m] = p[lo:hi]
             x[r, m:] = 0
-            r += 1
         return x
 
     def sorted_cols(lo, hi):
@@ -92,7 +94,31 @@ def _bitonic_pad_sort(mkeys, *, stable, use_rank, ordered, tile):
         del A, B
         return bitonic.merge_padded_cols(C, n_keys=n_keys, tile=tile)
 
-    return sorted_cols(0, mkeys.shape[0])
+    return sorted_cols(0, key_cols[0].shape[0])
+
+
+def _bitonic_engine(key_cols, payloads, *, stable, rank_payload, tile):
+    """Sort by the lexicographic key-column tuple through the bitonic
+    network, stably if `stable`, co-permuting payloads. Returns (key_cols,
+    payloads), each trimmed to the input length.
+
+    `rank_payload`: index of a payload that is strictly increasing as u32
+    with every element < 0xFFFFFFFF (an argsort iota); it doubles as the
+    stability tie-break, so the network carries one column fewer.
+    """
+    n = key_cols[0].shape[0]
+    nk = len(key_cols)
+    if stable and rank_payload is not None:
+        rest = [p for i, p in enumerate(payloads) if i != rank_payload]
+        out = _bitonic_pad_sort(key_cols, rest, tie=payloads[rank_payload], tile=tile)
+        # the rank payload rode in the tie slot; put it back in its place
+        tail = list(out[nk + 1:, :n])
+        tail.insert(rank_payload, out[nk, :n])
+    else:
+        out = _bitonic_pad_sort(key_cols, payloads, tie="iota" if stable else None,
+                                tile=tile)
+        tail = list(out[nk + stable:, :n])
+    return tuple(out[:nk, :n]), tuple(tail)
 
 
 def _resolve_method(method: str) -> str:
@@ -101,45 +127,46 @@ def _resolve_method(method: str) -> str:
     return "bitonic" if method == "auto" else method
 
 
-def _engine_sort(mkeys, payloads, *, stable, method, tile, key_bits=32,
-                 rank_payload=None, check_order=False):
-    """Sort by mkeys (stably if `stable`), co-permuting payloads.
+def _lex_word(hi, lo) -> torch.Tensor:
+    """int64 whose signed order is the unsigned order of the pair (hi, lo)."""
+    return common._join_u64(hi, lo) ^ common.SIGN_I64
 
-    mkeys and payloads are 1-D int32 (u32 pattern) tensors. Returns
-    (mkeys, payloads). `key_bits`: the number of meaningful low bits of
-    mkeys (the radix engine runs key_bits / 2 passes). `rank_payload`: index
-    of a payload that is strictly increasing as u32 with every element
-    < 0xFFFFFFFF (an argsort iota); it doubles as the bitonic network's
-    stability tie-break, so the network carries one column fewer. The radix
-    engine is stable by construction and ignores it; it alone takes
-    `check_order`, its mid-sort early exit.
+
+def _engine_sort(key_cols, payloads, *, stable, method, tile, key_bits=32,
+                 rank_payload=None, check_order=False):
+    """Sort by the lexicographic key-column tuple (stably if `stable`),
+    co-permuting payloads.
+
+    key_cols and payloads are 1-D int32 (u32 pattern) tensors; key_cols is
+    (mkeys,) for 16- and 32-bit keys, (hi, lo) or (lo,) for 64-bit keys.
+    Returns (key_cols, payloads). `key_bits`: the number of meaningful low
+    bits of the tuple (the radix engine runs key_bits / 2 passes).
+    `rank_payload`: see :func:`_bitonic_engine`. The radix engine is stable
+    by construction and ignores it; it alone takes `check_order`, its
+    mid-sort early exit, on one key column.
     """
     if method == "radix":
-        return radix.sort_u32(mkeys, payloads, bit_count=key_bits, tile=tile,
-                              check_order=check_order)
+        if len(key_cols) == 1:
+            k, ps = radix.sort_u32(key_cols[0], payloads, bit_count=key_bits, tile=tile,
+                                   check_order=check_order)
+            return (k,), ps
+        # LSD composition over the 32-bit words: each sort_u32 is stable, so
+        # sorting by lo then by hi orders by (hi, lo); hi holds the masked
+        # bits above 32 (two columns only when key_bits > 32)
+        hi, lo = key_cols
+        lo, carried = radix.sort_u32(lo, (hi, *payloads), bit_count=32, tile=tile)
+        hi, carried = radix.sort_u32(carried[0], (lo, *carried[1:]),
+                                     bit_count=key_bits - 32, tile=tile)
+        return (hi, carried[0]), carried[1:]
     if method == "xla":
-        sk, idx = torch.sort(common.bias_i32(mkeys), stable=True)
-        return common.bias_i32(sk), tuple(p[idx] for p in payloads)
+        if len(key_cols) == 1:
+            sk, idx = torch.sort(common.bias_i32(key_cols[0]), stable=True)
+            return (common.bias_i32(sk),), tuple(p[idx] for p in payloads)
+        _, idx = torch.sort(_lex_word(*key_cols), stable=True)
+        return tuple(c[idx] for c in key_cols), tuple(p[idx] for p in payloads)
 
-    n = mkeys.shape[0]
-    use_rank = stable and rank_payload is not None
-    if use_rank:
-        # the rank payload moves to the tie-break slot (row 1)
-        ordered = [payloads[rank_payload]] + [
-            p for i, p in enumerate(payloads) if i != rank_payload
-        ]
-    else:
-        ordered = list(payloads)
-    out = _bitonic_pad_sort(mkeys, stable=stable, use_rank=use_rank,
-                            ordered=ordered, tile=tile)
-    k = out[0, :n]
-    if use_rank:
-        # ordered only moved the rank payload to the front; undo that
-        tail = list(out[2:])
-        tail.insert(rank_payload, out[1])
-    else:
-        tail = list(out[2:] if stable else out[1:])
-    return k, tuple(p[:n] for p in tail)
+    return _bitonic_engine(key_cols, payloads, stable=stable,
+                           rank_payload=rank_payload, tile=tile)
 
 
 def sort(
@@ -162,9 +189,12 @@ def sort(
 
     Returns sorted keys, or (keys, values) when values is given, as new
     tensors on the keys' device. Elements at index >= count are returned
-    untouched. Key dtypes: uint32/float32/int32; `values` any 4- or 8-byte
-    dtype. `tile` overrides the engine's tile (elements per CUDA block, a
-    power of two); the output does not depend on it.
+    untouched. Key dtypes: uint32/float32/int32; uint16/int16/float16/
+    bfloat16 (their u16 bit pattern, `bit_count` up to 16); uint64/int64/
+    float64 (``ops/sort64.py``, `bit_count` up to 64). `bit_count` defaults
+    to the key's width. `values` any 4- or 8-byte dtype. `tile` overrides
+    the engine's tile (elements per CUDA block, a power of two); the output
+    does not depend on it.
 
     `values_are_ranks=True` promises that `values`, viewed as u32, is
     strictly increasing with every element < 0xFFFFFFFF (e.g. the identity
@@ -178,7 +208,7 @@ def sort(
     if keys.dim() != 1:
         raise ValueError("keys must be 1-D")
     common.check_key_dtype(keys.dtype)
-    bit_count = 32 if bit_count is None else bit_count
+    bit_count = common.native_key_bits(keys.dtype) if bit_count is None else bit_count
     common.validate_bit_count_for(keys.dtype, bit_count)
     n = keys.shape[0]
     if n >= bitonic.MAX_LENGTH:
@@ -197,7 +227,12 @@ def sort(
                 "contract is a single u32 column)"
             )
     method = _resolve_method(method)
-    out_k, out_v = _sort_core(
+    core = _sort_core
+    if common.is_64bit_key_dtype(keys.dtype):
+        from . import sort64  # local import: sort64 builds on this module
+
+        core = sort64.sort64
+    out_k, out_v = core(
         keys.contiguous(), None if values is None else values.contiguous(),
         count=count, bit_count=bit_count, check_order=check_order,
         total_order=total_order, descending=descending,
@@ -209,16 +244,17 @@ def sort(
 
 def _sort_core(keys, values, *, count, bit_count, check_order, total_order,
                descending, values_are_ranks, method, tile):
-    """Sort core. Always returns (keys, values_or_None), never aliasing the
-    inputs."""
-    n = keys.shape[0]
+    """Sort core of 16- and 32-bit keys. Always returns (keys,
+    values_or_None), never aliasing the inputs."""
     if count <= 1:
         return keys.clone(), None if values is None else values.clone()
 
     head = keys[:count]
     u_full = (common.to_total_order_u32(head) if total_order
               else common.to_sortable_u32(head))
-    masked = bit_count < 32
+    # masked against the key's own width: a 16-bit key at bit_count 16
+    # is the whole key and needs no full-key column
+    masked = bit_count < common.native_key_bits(keys.dtype)
     mask = common.i32(common.bit_mask(bit_count))
     mkeys = u_full & mask if masked else u_full
     if descending:
@@ -237,9 +273,9 @@ def _sort_core(keys, values, *, count, bit_count, check_order, total_order,
         payloads.extend(vcols)
 
     def do_sort():
-        mk, ps = _engine_sort(mkeys, tuple(payloads), stable=stable,
-                              method=method, tile=tile, key_bits=bit_count,
-                              rank_payload=rank_payload, check_order=check_order)
+        (mk,), ps = _engine_sort((mkeys,), tuple(payloads), stable=stable,
+                                  method=method, tile=tile, key_bits=bit_count,
+                                  rank_payload=rank_payload, check_order=check_order)
         ps = list(ps)
         if carry_full_key:
             u_sorted = ps.pop(0)
@@ -258,10 +294,16 @@ def _sort_core(keys, values, *, count, bit_count, check_order, total_order,
         out_keys = common.from_total_order_u32(u_sorted, keys.dtype)
     else:
         out_keys = common.from_sortable_u32(u_sorted, keys.dtype)
+    return with_suffix(keys, values, count, out_keys, result[1:])
+
+
+def with_suffix(keys, values, count, out_keys, vcols):
+    """The sorted head (`out_keys`, and the value columns `vcols`) joined
+    with the untouched elements from `count` on, as (keys, values_or_None)."""
     out_keys = torch.cat([out_keys, keys[count:]])
     if values is None:
         return out_keys, None
-    out_values = common.values_from_u32_cols(result[1:], values.dtype)
+    out_values = common.values_from_u32_cols(vcols, values.dtype)
     return out_keys, torch.cat([out_values, values[count:]])
 
 

@@ -6,6 +6,13 @@ into the port's tensors and back, bit for bit, and hold the port's device
 policy: a torch tensor runs where it lies; anything else goes to the CUDA
 card unless the caller names another device, and there is no silent move to
 the CPU when the card is missing.
+
+bfloat16 crosses as its bits: numpy has no bfloat16, ``torch.from_numpy``
+refuses an ``ml_dtypes.bfloat16`` array and ``Tensor.numpy()`` refuses a
+``torch.bfloat16`` tensor. So an ``ml_dtypes.bfloat16`` array (recognised by
+its dtype's name, without importing ``ml_dtypes``) becomes a
+``torch.bfloat16`` tensor of the same bits, and a ``torch.bfloat16`` tensor
+comes back as a ``uint16`` array of its bit patterns.
 """
 from __future__ import annotations
 
@@ -28,12 +35,20 @@ def resolve_device(device=None) -> torch.device:
 def from_numpy(arr: np.ndarray, device) -> torch.Tensor:
     """numpy array -> tensor on `device` with the same dtype and bits."""
     arr = np.ascontiguousarray(arr)
-    return torch.from_numpy(arr).to(resolve_device(device))
+    if arr.dtype.name == "bfloat16":
+        t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(arr)
+    return t.to(resolve_device(device))
 
 
 def to_numpy(t: torch.Tensor) -> np.ndarray:
-    """Tensor -> numpy array with the same dtype and bits (copied to host)."""
-    return t.detach().cpu().numpy()
+    """Tensor -> numpy array with the same dtype and bits (copied to host);
+    bfloat16 as a uint16 array of its bit patterns."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16)
+    return t.numpy()
 
 
 def as_tensor(x, device=None) -> torch.Tensor:
