@@ -14,10 +14,14 @@ options, then 64-bit keys (u64 key + rank, keys-only, float64 total order,
 the 7-column bitonic and 6-column radix paths, the two-column order-check
 gate, ``is_sorted``/``disorder_count``) and bfloat16 keys at 2^26; checks
 every result byte for byte, times the sorts, the scan, each kernel, its
-plain version and ``torch.sort``/``torch.cumsum``, and prints:
+plain version and ``torch.sort``/``torch.cumsum`` (K1's tile calls split
+into phase 1 and the mean merge tail; K4 also at a 4-byte offset and 20
+times in a row at 2^26; K2 20 calls back to back; K6 with 1 to 6 columns),
+and prints:
 
-- the card's name and power limit (``nvidia-smi``) and the build's register
-  and shared-memory lines;
+- the card's name and power limit (``nvidia-smi``) and the build's register,
+  shared-memory and spill lines (it fails if the K1 tile kernel spills with
+  2 or 3 columns);
 - one line per check;
 - one JSON line ``{"kernels": [...]}``;
 - last, ``{"ok": true, "device": {...}}``.
@@ -29,6 +33,7 @@ false or the package is not beside it. It imports nothing of JAX.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -156,13 +161,19 @@ def run(dev) -> None:
     t0 = time.perf_counter()
     logs = _build.build()
     print(f"build: {sorted(logs)} in {time.perf_counter() - t0:.1f} s")
+    spills = {}
     for name, log in sorted(logs.items()):
         entry = None
         for line in log.splitlines():
             if "Compiling entry function" in line:
                 entry = line.split("'")[1]
+            elif "spill stores" in line and entry:
+                spills[entry] = int(line.split("bytes spill stores")[0].split(",")[-1])
             elif "Used" in line and entry:
-                print(f"ptxas {name}: {entry}: {line.split(':', 1)[1].strip()}")
+                print(f"ptxas {name}: {entry}: {line.split(':', 1)[1].strip()}, "
+                      f"{spills.get(entry, 0)} bytes spill stores")
+    tile_spills = {m.groups(): b for e, b in spills.items()
+                   if (m := re.search(r"bitonic_tile_kernelILi(\d)ELi(\d)E", e))}
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
@@ -241,15 +252,29 @@ def run(dev) -> None:
     table_n = radix.R * common.cdiv(HEADLINE_N, radix.DEFAULT_TILE)
     scan_sizes = (1, scan.SCAN_TILE, scan.SCAN_TILE + 1, SMALL_N, table_n)
     for n in scan_sizes:
-        u = rand_u32(n).view(torch.int32)
-        for inclusive in (False, True):
-            err = u32_err(scan.scan_kernel(u, inclusive=inclusive),
-                          scan.scan_plain(u, inclusive=inclusive))
-            max_err["scan_kernel"] = max(max_err["scan_kernel"], err)
-            if err:
-                raise CheckFailed(f"K4 differs from plain, n {n}, inclusive {inclusive}")
+        whole = rand_u32(n + 1).view(torch.int32)
+        # whole[1:] lies at a 4-byte offset: the kernel's scalar loads
+        for label, u in (("aligned", whole[:n]), ("4-byte offset", whole[1:])):
+            for inclusive in (False, True):
+                before = _build.SCAN.launches
+                err = u32_err(scan.scan_kernel(u, inclusive=inclusive),
+                              scan.scan_plain(u, inclusive=inclusive))
+                max_err["scan_kernel"] = max(max_err["scan_kernel"], err)
+                if err or _build.SCAN.launches != before + 1:
+                    raise CheckFailed(f"K4 differs from plain or is not one launch, n {n}, "
+                                      f"{label}, inclusive {inclusive}")
     check(max_err["scan_kernel"] == 0,
-          f"K4 == plain, exclusive and inclusive, n in {scan_sizes}")
+          f"K4 == plain in one launch, exclusive and inclusive, aligned and at a 4-byte "
+          f"offset, n in {scan_sizes}")
+    # back-to-back repeats at the headline size, each compared: a look-back
+    # race would show as a wrong prefix now and then
+    u = rand_u32(HEADLINE_N).view(torch.int32)
+    want = scan.scan_plain(u)
+    outs = [scan.scan_kernel(u) for _ in range(20)]
+    errs = [u32_err(o, want) for o in outs]
+    max_err["scan_kernel"] = max(max_err["scan_kernel"], *errs)
+    check(not any(errs), "K4 == plain on 20 back-to-back exclusive scans of 2^26")
+    del u, want, outs
     for n_arr in (1, 2, 3, 4, 5, 6):  # 5 and 6: the 64-bit radix paths
         x = torch.stack([rand_u32(SMALL_N).view(torch.int32) for _ in range(n_arr)])
         for keys_kind in ("random", "all-equal"):
@@ -580,12 +605,17 @@ def run(dev) -> None:
         for name, a in acc.items():
             a["ms"], a["plain_ms"] = elapsed_ms(a["k"]), elapsed_ms(a["p"])
             calls = len(a["ms"])
-            print(json.dumps({"calls_of": name, "network": label, "columns": n_arr,
-                              "n_keys": n_keys, "n": n, "tile": tile, "calls": calls,
-                              "ms_sum": sum(a["ms"]), "ms_min": min(a["ms"]),
-                              "ms_max": max(a["ms"]), "plain_ms_sum": sum(a["plain_ms"]),
-                              "bound_ms_sum": bound(a["bytes"], a["ops"])[0],
-                              "ms_each": a["ms"] if calls <= 4 else None}))
+            line = {"calls_of": name, "network": label, "columns": n_arr,
+                    "n_keys": n_keys, "n": n, "tile": tile, "calls": calls,
+                    "ms_sum": sum(a["ms"]), "ms_min": min(a["ms"]),
+                    "ms_max": max(a["ms"]), "plain_ms_sum": sum(a["plain_ms"]),
+                    "bound_ms_sum": bound(a["bytes"], a["ops"])[0],
+                    "ms_each": a["ms"] if calls <= 4 else None}
+            if name == "bitonic_tile_kernel":  # the schedule's first call is phase 1
+                line["phase1_ms"] = a["ms"][0]
+                line["merge_tail_mean_ms"] = (sum(a["ms"][1:]) / (calls - 1)
+                                              if calls > 1 else None)
+            print(json.dumps(line))
         return x, acc, tile
 
     n_arr, n_keys = 2, 2
@@ -627,8 +657,6 @@ def run(dev) -> None:
     k_ms, p_ms = elapsed_ms(a["k"]), elapsed_ms(a["p"])
     print(json.dumps({"calls_of": "disorder_kernel", "calls": 2, "ms_each": k_ms,
                       "plain_ms_sum": sum(p_ms), "bound_ms_sum": bound(a["bytes"], a["ops"])[0]}))
-    rows["disorder_kernel"] = dict(ms=sum(k_ms) / 2, plain_ms=sum(p_ms) / 2,
-                                   bytes=a["bytes"] / 2, ops=a["ops"] / 2, library_ms=None)
 
     # Replay the headline radix sort (key, iota) pass by pass, each kernel
     # call on the same input as its plain version.
@@ -689,6 +717,13 @@ def run(dev) -> None:
         bytes=2 * 4 * n + 4, ops=2 * (n - 1), library_ms=None)
     check(max_err["disorder_cols_kernel"] == 0, "K3 == plain on the sorted u64 keys at 2^26")
     del hi64, lo64
+    # K2 at the headline size, 20 calls back to back on the sorted keys
+    rows["disorder_kernel"] = dict(
+        ms=ms(checksort.disorder_kernel, u), plain_ms=ms(checksort.disorder_plain, u, iters=5),
+        bytes=4 * n + 4, ops=n - 1, library_ms=None)
+    print(json.dumps({"calls_of": "disorder_kernel", "n": n, "back_to_back_calls": 20,
+                      "ms": rows["disorder_kernel"]["ms"],
+                      "bound_ms": bound(4 * n + 4, n - 1)[0]}))
     before = _build.SCAN.launches
     radix.bucket_offsets(hist0)
     table_launches = _build.SCAN.launches - before
@@ -716,8 +751,32 @@ def run(dev) -> None:
                       "plain_ms": ms(lambda x: radix.reorder_pass_plain(
                           x, offs3, bit=0, tile=rtile, out=y3), x3, iters=3),
                       "bound_ms": bound(2 * 3 * 4 * n + 4 * radix.R * nb, 2 * n)[0]}))
-    del xr, yr, x3, y3, want
+    del xr, yr, y3, want
+    # 4 to 6 columns (the 64-bit radix paths with payloads), on pass 0 of
+    # the same keys: extra random payload columns
+    for cols in (4, 5, 6):
+        xc = torch.cat([x3, torch.stack([rand_u32(n).view(torch.int32)
+                                         for _ in range(cols - 3)])])
+        yc = torch.empty_like(xc)
+        want = radix.reorder_pass_plain(xc, offs3, bit=0, tile=rtile, out=torch.empty_like(xc))
+        err = u32_err(radix.reorder_pass(xc, offs3, bit=0, tile=rtile, out=yc), want)
+        max_err["reorder_kernel"] = max(max_err["reorder_kernel"], err)
+        check(err == 0, f"K6 == plain on pass 0 at 2^26 with {cols} columns")
+        del want
+        print(json.dumps({"calls_of": "reorder_kernel", "columns": cols,
+                          "ms": ms(lambda x: radix.reorder_pass(x, offs3, bit=0, tile=rtile,
+                                                                out=yc), xc),
+                          "plain_ms": ms(lambda x: radix.reorder_pass_plain(
+                              x, offs3, bit=0, tile=rtile, out=yc), xc, iters=3),
+                          "bound_ms": bound(2 * cols * 4 * n + 4 * radix.R * nb, 2 * n)[0]}))
+        del xc, yc
+    del x3
 
+    # checked last, so that a run that fails it still prints its times
+    spilled = {f"{a},{k}": b for (a, k), b in tile_spills.items() if a in ("2", "3") and b}
+    check(len(tile_spills) == 18 and not spilled,
+          f"bitonic_tile_kernel with 2 or 3 columns spills no registers "
+          f"(ptxas spill stores in bytes: {spilled})")
     kernels = []
     for k in _build.KERNELS:
         r = rows[k.name]
@@ -733,7 +792,9 @@ def run(dev) -> None:
         })
     sort_bound, _ = bound(2 * n_arr * 4 * HEADLINE_N, 0)
     print(json.dumps({"sort": {
-        "n": HEADLINE_N, "tile": tile, "smem_bytes_per_block": n_arr * tile * 4,
+        "n": HEADLINE_N, "tile": tile,
+        # the tile kernel's exchange buffer: the key words, one spare in 33
+        "smem_bytes_per_block": (tile + tile // 32) * 4 * n_keys,
         "ms": sort_ms, "keys_only_ms": keys_only_ms,
         "library_ms": lib_ms, "library": "torch.sort(stable=True) on the biased int32 keys",
         "bound_ms": sort_bound, "is_sorted_ms": gate_ms,

@@ -1,0 +1,126 @@
+#!/usr/bin/env python3
+"""Time the port's redesigned kernels and the sorts around them, for one
+checkout of the repository, on one CUDA card.
+
+    python3 kernel_times.py [--root DIR] [--label NAME]
+
+imports ``tpu_radix_sort_torch`` from DIR (default: beside this script),
+builds its kernels there, and prints one JSON line: the card's name and power
+limit; K4 on 2^26 u32 (inclusive scan) beside ``torch.cumsum``, and the radix
+sort's 65,536-entry table scan with its launches; the K1 tile kernel's
+phase-1 call and mean merge-tail call, replayed call by call on the 2^26
+u32 key+rank (2 columns) and u64 key+rank (3 columns) networks; the 2^26
+key+rank sorts through both engines beside ``torch.sort``; and a tile call
+with no stages (the device-memory round trip alone). Every time is the
+mean of CUDA-event windows after a warm-up. Running it on two checkouts in
+turns on one machine (A, B, B, A) compares them on one card. It uses only
+entry points that every slice of the port has had since the radix engine.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+N = 1 << 26
+SEED = 20261017
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--root", default=str(Path(__file__).resolve().parent))
+    ap.add_argument("--label", default=None)
+    args = ap.parse_args()
+    import torch
+
+    if not torch.cuda.is_available():
+        print("kernel_times: torch.cuda.is_available() is false", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(Path(args.root).resolve()))
+    import tpu_radix_sort_torch as trt
+    from tpu_radix_sort_torch import _build
+    from tpu_radix_sort_torch.ops import bitonic, common, radix, scan
+    from tpu_radix_sort_torch.runtime.timing import device_time
+
+    assert Path(trt.__file__).resolve().is_relative_to(Path(args.root).resolve())
+    _build.build()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+
+    def ms(fn, *a, iters=20):
+        return device_time(fn, *a, warmup=2, iters=iters) * 1e3
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    keys = torch.randint(-2**31, 2**31, (N,), dtype=torch.int32, device="cuda",
+                         generator=gen)
+    iota = torch.arange(N, dtype=torch.int32, device="cuda")
+    k64 = torch.randint(-2**63, 2**63 - 1, (N,), dtype=torch.int64, device="cuda",
+                        generator=gen)
+    out = {"label": args.label or args.root, "card": smi}
+
+    hist = radix.digit_histogram(keys, bit=0, tile=radix.DEFAULT_TILE)
+    before = _build.SCAN.launches
+    radix.bucket_offsets(hist)
+    table_launches = _build.SCAN.launches - before
+    out["k4"] = {
+        "ms_2p26": ms(lambda x: scan.scan_kernel(x, inclusive=True), keys),
+        "cumsum_ms_2p26": ms(lambda x: torch.cumsum(x, 0, dtype=torch.int32), keys),
+        "table_entries": hist.numel(),
+        "table_ms": ms(radix.bucket_offsets, hist),
+        "table_launches": table_launches,
+    }
+
+    def tile_calls(x, n_keys):
+        n_arr, n = x.shape
+        tile = bitonic.resolve_tile(n, n_arr)
+        # warm-up: the first launch of a kernel loads its module
+        bitonic.tile_stages(x[:, :2 * tile].clone(), bitonic._block_stages(2, tile),
+                            n_keys=n_keys, tile=tile)
+        # a call with no stages: the device-memory round trip alone
+        empty_ms = ms(lambda y: bitonic.tile_stages(y, [], n_keys=n_keys, tile=tile), x,
+                      iters=5)
+        times = []
+        for call in bitonic.sort_schedule(n, tile):
+            if call[0] == "global":
+                bitonic.global_stage(x, call[1], call[2], n_keys=n_keys)
+                continue
+            s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            s.record()
+            bitonic.tile_stages(x, call[1], n_keys=n_keys, tile=tile)
+            e.record()
+            times.append((s, e))
+        torch.cuda.synchronize()
+        t = [s.elapsed_time(e) for s, e in times]
+        return {"columns": n_arr, "tile": tile, "calls": len(t), "empty_call_ms": empty_ms,
+                "phase1_ms": t[0],
+                "merge_tail_mean_ms": sum(t[1:]) / len(t[1:]), "all_ms": sum(t)}
+
+    hi, lo = common.to_sortable_u64_cols(k64.view(torch.uint64))
+    out["k1_tile"] = {
+        "u32_key_rank": tile_calls(torch.stack([keys, iota]), 2),
+        "u64_key_rank": tile_calls(torch.stack([hi, lo, iota]), 3),
+    }
+    del hi, lo
+    ku, iu, k64u = keys.view(torch.uint32), iota.view(torch.uint32), k64.view(torch.uint64)
+    out["sorts"] = {
+        "u32_key_rank_ms": ms(lambda k, v: trt.sort(k, v, values_are_ranks=True), ku, iu,
+                              iters=10),
+        "u32_radix_ms": ms(lambda k, v: trt.sort(k, v, method="radix"), ku, iu, iters=10),
+        "u32_torch_sort_ms": ms(lambda k: torch.sort(k ^ (-2**31), stable=True), keys,
+                                iters=10),
+        "u64_key_rank_ms": ms(lambda k, v: trt.sort(k, v, values_are_ranks=True), k64u, iu,
+                              iters=10),
+        "u64_radix_ms": ms(lambda k, v: trt.sort(k, v, method="radix"), k64u, iu, iters=10),
+        "u64_torch_sort_ms": ms(lambda k: torch.sort(k ^ (-2**63), stable=True), k64,
+                                iters=10),
+    }
+    print(json.dumps({"kernel_times": out}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

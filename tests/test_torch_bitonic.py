@@ -122,3 +122,27 @@ def test_wrappers_refuse_what_the_kernel_does_not_take():
                             tile=3)
     with pytest.raises(ValueError):  # 5 columns of a 2^14 tile overflow 227 KB
         bitonic.resolve_tile(1 << 20, 5, 1 << 14)
+
+
+@pytest.mark.parametrize("tile", [1 << e for e in range(1, 16)])
+def test_tile_plan_covers_the_stages_in_order(tile):
+    """The window plan of the tile kernel: its runs, concatenated, are the
+    stage list; every stride bit lies in its run's window; the plan makes
+    few window changes (the kernel loads and stores in a window s >= 5: a
+    plan that starts or ends in window 0 counts one change more)."""
+    bits = bitonic.chunk_bits(tile)
+    wins = bitonic.windows(bits)
+    assert wins[0] == 0 and all(5 <= w <= bits - 5 for w in wins[1:])
+    assert set(range(bits)) == {b for w in wins for b in range(w, w + 5)}
+    phase1 = bitonic._block_stages(2, tile)
+    tail = [(2 * tile, j) for j in bitonic._halving(tile // 2)]
+    # phase 1: a change out of window 0 and back per round above 5, a third
+    # per round above 10; a merge tail: three windows at most
+    rounds = max(0, tile.bit_length() - 6)
+    for stages, most in ((phase1, 2 + 2 * rounds + max(0, rounds - 5)), (tail, 3)):
+        runs = bitonic.tile_plan(stages, tile)
+        assert [s for _, run in runs for s in run] == stages
+        assert all(w in wins and w <= j.bit_length() - 1 <= w + 4
+                   for w, run in runs for _, j in run)
+        changes = len(runs) - 1 + (runs[0][0] == 0) + (runs[-1][0] == 0)
+        assert changes <= most, (changes, most)

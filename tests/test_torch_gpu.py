@@ -17,6 +17,7 @@ from tpu_radix_sort_torch import _build
 from tpu_radix_sort_torch.models.golden import golden_sort
 from tpu_radix_sort_torch.ops import bitonic, checksort, radix, scan
 from tpu_radix_sort_torch.ops import sort as sort_mod
+from tpu_radix_sort_torch.utils import dispatch
 
 pytestmark = pytest.mark.gpu
 
@@ -38,13 +39,23 @@ def _columns(rng, n_arr, n_keys, n):
     return torch.from_numpy(x)
 
 
-@pytest.mark.parametrize("n_arr,n_keys", [
+_COLUMN_CONFIGS = [
     (1, 1), (2, 1), (2, 2), (3, 1), (3, 2), (3, 3), (4, 2), (4, 3), (5, 2), (5, 3),
     (6, 3), (7, 2), (7, 3),
+]
+
+
+@pytest.mark.parametrize("n_arr,n_keys,tile", [
+    (a, k, t) for a, k in _COLUMN_CONFIGS
+    for t in (2, 32, 128, 1024, 1 << 14) + (((1 << 15),) if a == 1 else ())
+    if a * t * 4 <= dispatch.SMEM_BUDGET_BYTES
 ])
-def test_bitonic_kernels_match_plain(cuda, n_arr, n_keys):
-    rng = np.random.default_rng(10 * n_arr + n_keys)
-    n, tile = 1 << 14, 256
+def test_bitonic_kernels_match_plain(cuda, n_arr, n_keys, tile):
+    """Every call of a sort's schedule, tiles below one warp's 1,024
+    elements (a chunk of several tiles, the array shorter than a chunk at
+    tile 2) up to the largest tile the columns fit."""
+    rng = np.random.default_rng(10 * n_arr + n_keys + tile)
+    n = 2 * max(tile, 256)
     x = _columns(rng, n_arr, n_keys, n).to(cuda)
     before = _build.launch_counts()
     for call in bitonic.sort_schedule(n, tile):
@@ -99,21 +110,24 @@ def test_sort_on_card_matches_golden(cuda, monkeypatch):
         assert not trt.is_sorted(k, device=cuda)
 
 
-@pytest.mark.parametrize("n", [1, 4095, 4096, 4097, 65536, (1 << 22) + 3])
+@pytest.mark.parametrize("n", [1, 4095, 4096, 4097, 16383, 16384, 16385, 65536,
+                               (1 << 22) + 3])
 @pytest.mark.parametrize("inclusive", [False, True])
 def test_scan_kernel_matches_plain(cuda, n, inclusive):
+    """One launch per call, whatever n; inputs at a 4-byte offset (scalar
+    loads) and lengths that are no multiple of 4; at 2^22 + 3 ten calls in
+    a row, each compared, to catch a look-back race."""
     rng = np.random.default_rng(n)
-    u = rng.integers(0, 2**32, n, dtype=np.uint64).astype(np.uint32)
-    t = torch.from_numpy(u.view(np.int32)).to(cuda)
-    before = _build.SCAN.launches
-    got = scan.scan_kernel(t, inclusive=inclusive)
-    # one launch per tile level: a block-sum and a scan launch below the top
-    levels, m = 1, n
-    while m > scan.SCAN_TILE:
-        m = -(-m // scan.SCAN_TILE)
-        levels += 1
-    assert _build.SCAN.launches == before + 2 * levels - 1
-    assert torch.equal(got, scan.scan_plain(t, inclusive=inclusive))
+    u = rng.integers(0, 2**32, n + 1, dtype=np.uint64).astype(np.uint32)
+    whole = torch.from_numpy(u.view(np.int32)).to(cuda)
+    for t in (whole[:n], whole[1:]):
+        for _ in range(10 if n > 1 << 22 else 1):
+            before = _build.SCAN.launches
+            got = scan.scan_kernel(t, inclusive=inclusive)
+            assert _build.SCAN.launches == before + 1
+            assert torch.equal(got, scan.scan_plain(t, inclusive=inclusive))
+    assert torch.equal(trt.prefix_sum(whole[1:].view(torch.uint32), inclusive=inclusive)
+                       .view(torch.int32), scan.scan_plain(whole[1:], inclusive=inclusive))
 
 
 @pytest.mark.parametrize("n_arr", [1, 2, 3, 4, 5, 6])

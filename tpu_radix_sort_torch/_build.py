@@ -120,7 +120,7 @@ _U32P = ctypes.POINTER(ctypes.c_uint)
 
 BITONIC_TILE = Kernel(
     "bitonic_tile_kernel", "bitonic", "trs_bitonic_tile",
-    [_P, _I64, _I32, _I32, _I64, _U32P, _U32P, _I32, _P],
+    [_P, _I64, _I32, _I32, _I64, _U32P, _U32P, _U32P, _I32, _P],
 )
 BITONIC_GLOBAL_STAGE = Kernel(
     "bitonic_global_stage_kernel", "bitonic", "trs_bitonic_global_stage",
@@ -132,9 +132,7 @@ DISORDER = Kernel(
 DISORDER_COLS = Kernel(
     "disorder_cols_kernel", "disorder", "trs_disorder_count_cols", [_P, _P, _I64, _P, _P],
 )
-SCAN = Kernel(
-    "scan_kernel", "scan", "trs_scan_pass", [_I32, _P, _I64, _I64, _P, _P, _I32, _P],
-)
+SCAN = Kernel("scan_kernel", "scan", "trs_scan", [_P, _I64, _P, _I32, _P, _P])
 DIGIT_HISTOGRAM = Kernel(
     "digit_histogram_kernel", "radix", "trs_digit_histogram",
     [_P, _I64, _I32, _I64, _P, _P],

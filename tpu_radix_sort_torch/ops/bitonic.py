@@ -16,6 +16,11 @@ stage list to the whole tensor and is what a CPU tensor runs. A call on a
 CUDA tensor launches the kernel or raises. The stage list is the same
 network for every T, and the column contract below makes the sorted order
 unique, so the output does not depend on T.
+
+The tile kernel holds its elements in registers, 32 per thread, in a
+window: five consecutive index bits in registers. :func:`tile_plan` chooses
+the window of each stage on the host (fewest changes); the kernel changes
+window through shared memory only where the plan does.
 """
 from __future__ import annotations
 
@@ -33,6 +38,7 @@ MAX_KEYS = 3
 MAX_STAGES_PER_CALL = 128  # kMaxStages in csrc/bitonic.cu
 MAX_TILE = 1 << 15  # phase 1 of a 2^15 tile is 120 stages
 MAX_LENGTH = 1 << 31  # indices stay u32 in the kernels
+CHUNK_MIN = 1024  # the tile kernel's smallest chunk: 32 lanes x 32 registers
 
 
 def _block_stages(k_lo, k_hi):
@@ -86,6 +92,53 @@ def stages_plain(x: torch.Tensor, stages, n_keys: int) -> torch.Tensor:
     return x
 
 
+def chunk_bits(tile: int) -> int:
+    """log2 of the elements one block of the tile kernel holds: the tile,
+    or one warp's 32 x 32 registers if that is more (``kChunkMin``)."""
+    return max(tile, CHUNK_MIN).bit_length() - 1
+
+
+def windows(bits: int):
+    """The tile kernel's layouts for a chunk of 2**bits elements: window s
+    holds index bits s..s+4 in registers (csrc/bitonic.cu); s = 0, or
+    5 <= s <= bits - 5, where a warp's lanes sit on bits 0-4."""
+    return [0] + list(range(5, bits - 4))
+
+
+def tile_plan(stages, tile: int):
+    """Cut a tile call's stage list into runs [(window, [stages])] with the
+    fewest window changes: each stage runs in a window that holds the bit
+    of its stride. The kernel loads and stores in a window s >= 5, so a plan
+    that starts or ends in window 0 pays one more change there."""
+    wins = windows(chunk_bits(tile))
+    inf = float("inf")
+    cost = {w: 1 if w == 0 else 0 for w in wins}
+    back = []
+    for _, j in stages:
+        b = j.bit_length() - 1
+        best = min(cost, key=lambda w: cost[w])
+        new, came = {}, {}
+        for w in wins:
+            stay, move = cost[w], cost[best] + 1
+            came[w] = w if stay <= move else best
+            new[w] = min(stay, move) if w <= b <= w + 4 else inf
+        back.append(came)
+        cost = new
+    w = min(wins, key=lambda w: cost[w] + (w == 0))
+    plan = []
+    for came in reversed(back):
+        plan.append(w)
+        w = came[w]
+    plan.reverse()
+    runs = []
+    for stage, w in zip(stages, plan):
+        if runs and runs[-1][0] == w:
+            runs[-1][1].append(stage)
+        else:
+            runs.append((w, [stage]))
+    return runs
+
+
 def _check_cols(x: torch.Tensor, n_keys: int) -> None:
     if not isinstance(x, torch.Tensor) or x.dtype != torch.int32:
         raise TypeError("columns must be an int32 tensor of u32 bit patterns")
@@ -120,12 +173,23 @@ def tile_stages(x: torch.Tensor, stages, *, n_keys: int, tile: int) -> torch.Ten
             raise ValueError(f"stage {(k, j)} does not fit tile {tile}")
     if _device_kind(x) == "cpu":
         return stages_plain(x, stages, n_keys)
-    ks = (ctypes.c_uint * max(1, len(stages)))(*[k for k, _ in stages])
-    js = (ctypes.c_uint * max(1, len(stages)))(*[j for _, j in stages])
+    # an array shorter than the kernel's chunk runs padded to one chunk: the
+    # stand-ins pair only with each other (every stride < tile <= n)
+    chunk = 1 << chunk_bits(tile)
+    y = x
+    if n < chunk:
+        y = torch.zeros((n_arr, chunk), dtype=x.dtype, device=x.device)
+        y[:, :n] = x
+    arr = ctypes.c_uint * max(1, len(stages))
+    ks = arr(*[k for k, _ in stages])
+    js = arr(*[j for _, j in stages])
+    wins = arr(*[w for w, run in tile_plan(stages, tile) for _ in run])
     _build.BITONIC_TILE(
-        x.data_ptr(), n, n_arr, n_keys, tile, ks, js, len(stages),
+        y.data_ptr(), y.shape[1], n_arr, n_keys, tile, ks, js, wins, len(stages),
         torch.cuda.current_stream(x.device).cuda_stream,
     )
+    if y is not x:
+        x.copy_(y[:, :n])
     return x
 
 

@@ -5,13 +5,13 @@ Counterpart of ``tpu_radix_sort/ops/scan.py``: the reference's
 the first `count` elements with u32 wraparound, the rest untouched, uint32
 or int32 in and the same dtype out.
 
-Kernel K4 (``csrc/scan.cu``) scans on the card. The TPU kernel carried a
-running sum across a sequential grid; CUDA blocks run in no order, so K4 is
-reduce-then-scan over tiles of SCAN_TILE elements: one launch writes each
-tile's sum, the tile sums are scanned by the same scheme (recursing while
-they span more than one tile), and one last launch scans every tile and adds
-its tile's offset. :func:`scan_plain` is its plain PyTorch version, which a
-CPU tensor runs; on a CUDA tensor :func:`scan_kernel` launches K4 or raises.
+Kernel K4 (``csrc/scan.cu``) scans on the card in one launch for every n.
+The TPU kernel carried a running sum across a sequential grid; CUDA blocks
+run in no order, so K4 is a single-pass scan with decoupled look-back: each
+block takes a tile of SCAN_TILE elements by ticket, publishes its sum, and
+adds what it finds by looking back over its predecessors' sums. The input
+is read once. :func:`scan_plain` is its plain PyTorch version, which a CPU
+tensor runs; on a CUDA tensor :func:`scan_kernel` launches K4 or raises.
 """
 from __future__ import annotations
 
@@ -21,7 +21,7 @@ from .. import _build
 from ..utils import interop
 from . import common
 
-SCAN_TILE = 4096  # elements per CUDA block of K4 (a multiple of its 256 threads)
+SCAN_TILE = 16384  # elements per CUDA block of K4 (kTile in csrc/scan.cu)
 _U32 = 0xFFFFFFFF
 
 
@@ -50,19 +50,6 @@ def _check(x: torch.Tensor) -> None:
         raise ValueError(f"unsupported device {x.device}")
 
 
-def _scan_cuda(x, out, inclusive, stream) -> None:
-    n = x.shape[0]
-    nblocks = common.cdiv(n, SCAN_TILE)
-    offs = None
-    if nblocks > 1:
-        sums = torch.empty(nblocks, dtype=torch.int32, device=x.device)
-        _build.SCAN(0, x.data_ptr(), n, SCAN_TILE, sums.data_ptr(), None, 0, stream)
-        offs = torch.empty_like(sums)
-        _scan_cuda(sums, offs, False, stream)
-    _build.SCAN(1, x.data_ptr(), n, SCAN_TILE, out.data_ptr(),
-                None if offs is None else offs.data_ptr(), int(inclusive), stream)
-
-
 def scan_kernel(x: torch.Tensor, *, inclusive: bool = False) -> torch.Tensor:
     """K4: the scan of a 1-D int32 (u32-pattern) tensor, as a new tensor on
     the same device. A CPU tensor runs :func:`scan_plain`."""
@@ -70,8 +57,12 @@ def scan_kernel(x: torch.Tensor, *, inclusive: bool = False) -> torch.Tensor:
     if x.device.type == "cpu":
         return scan_plain(x, inclusive=inclusive)
     out = torch.empty_like(x)
-    if x.shape[0]:
-        _scan_cuda(x, out, inclusive, torch.cuda.current_stream(x.device).cuda_stream)
+    n = x.shape[0]
+    if n:
+        # the tiles' look-back descriptors and the ticket, zeroed on the stream
+        scratch = torch.zeros(common.cdiv(n, SCAN_TILE) + 1, dtype=torch.int64, device=x.device)
+        _build.SCAN(x.data_ptr(), n, out.data_ptr(), int(inclusive), scratch.data_ptr(),
+                    torch.cuda.current_stream(x.device).cuda_stream)
     return out
 
 
