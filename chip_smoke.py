@@ -16,12 +16,12 @@ gate, ``is_sorted``/``disorder_count``) and bfloat16 keys at 2^26; checks
 every result byte for byte, times the sorts, the scan, each kernel, its
 plain version and ``torch.sort``/``torch.cumsum`` (K1's tile calls split
 into phase 1 and the mean merge tail; K4 also at a 4-byte offset and 20
-times in a row at 2^26; K2 20 calls back to back; K6 with 1 to 6 columns),
-and prints:
+times in a row at 2^26; K2 20 calls back to back; K6 with 1 to 6 columns,
+each beside a device ``copy_`` of the same columns), and prints:
 
 - the card's name and power limit (``nvidia-smi``) and the build's register,
   shared-memory and spill lines (it fails if the K1 tile kernel spills with
-  2 or 3 columns);
+  2 or 3 columns, or the K6 reorder kernel spills at all);
 - one line per check;
 - one JSON line ``{"kernels": [...]}``;
 - last, ``{"ok": true, "device": {...}}``.
@@ -174,6 +174,7 @@ def run(dev) -> None:
                       f"{spills.get(entry, 0)} bytes spill stores")
     tile_spills = {m.groups(): b for e, b in spills.items()
                    if (m := re.search(r"bitonic_tile_kernelILi(\d)ELi(\d)E", e))}
+    reorder_spills = {e: b for e, b in spills.items() if "reorder_kernel" in e}
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
@@ -275,13 +276,16 @@ def run(dev) -> None:
     max_err["scan_kernel"] = max(max_err["scan_kernel"], *errs)
     check(not any(errs), "K4 == plain on 20 back-to-back exclusive scans of 2^26")
     del u, want, outs
+    # K6's chunk is 4,096 elements: tiles below it (one warp) and above it;
+    # all-equal keys fill a tile of 2^16 with one digit run
+    radix_tiles = (32, 128, radix.DEFAULT_TILE, 1 << 16)
     for n_arr in (1, 2, 3, 4, 5, 6):  # 5 and 6: the 64-bit radix paths
         x = torch.stack([rand_u32(SMALL_N).view(torch.int32) for _ in range(n_arr)])
         for keys_kind in ("random", "all-equal"):
             if keys_kind == "all-equal":
                 x[0] = common.i32(0xDEADBEEF)
             for bit in (0, 2, 16, 30):
-                for tile in (radix.DEFAULT_TILE, 128):
+                for tile in radix_tiles:
                     hist = radix.digit_histogram(x[0], bit=bit, tile=tile)
                     err_h = u32_err(hist, radix.digit_histogram_plain(x[0], bit=bit, tile=tile))
                     offs = radix.bucket_offsets(hist)
@@ -295,7 +299,7 @@ def run(dev) -> None:
                         raise CheckFailed(f"K5/K6 differ from plain: {n_arr} columns, "
                                           f"{keys_kind} keys, bit {bit}, tile {tile}")
         check(True, f"K5 and K6 == plain, {n_arr} columns, n 2^16+3, random and all-equal "
-              f"keys, bits 0/2/16/30, tiles {radix.DEFAULT_TILE} and 128")
+              f"keys, bits 0/2/16/30, tiles {radix_tiles}")
     del x, got, want
 
     # ---- the main path -----------------------------------------------------
@@ -733,10 +737,19 @@ def run(dev) -> None:
                       "launches_per_table_scan": table_launches, "ms": table_ms,
                       "plain_ms": table_plain_ms,
                       "bound_ms": bound(8 * radix.R * nb, radix.R * nb)[0]}))
+    # Beside each K6 time, a device copy_ of the same (n_arr, n) columns: the
+    # rate this card reaches for a plain read and write of those bytes.
+    def copy_ms(x, y):
+        return ms(lambda a: y.copy_(a), x)
+
     print(json.dumps({"calls_of": "reorder_kernel", "columns": 1,
                       "ms": ms(lambda x: radix.reorder_pass(x, offs0, bit=0, tile=rtile,
                                                             out=yr[:1]), xr[:1]),
+                      "copy_ms": copy_ms(xr[:1], yr[:1]),
                       "bound_ms": bound(2 * 4 * n + 4 * radix.R * nb, 2 * n)[0]}))
+    print(json.dumps({"calls_of": "reorder_kernel", "columns": 2,
+                      "ms": rows["reorder_kernel"]["ms"], "copy_ms": copy_ms(xr, yr),
+                      "bound_ms": bound(rows["reorder_kernel"]["bytes"], 2 * n)[0]}))
     # pass 0 of the 64-bit key + rank radix sort: lo, carrying hi and the rank
     x3 = torch.stack([*common.to_sortable_u64_cols(k64)[::-1], iota.view(torch.int32)])
     y3 = torch.empty_like(x3)
@@ -748,6 +761,7 @@ def run(dev) -> None:
     print(json.dumps({"calls_of": "reorder_kernel", "columns": 3,
                       "ms": ms(lambda x: radix.reorder_pass(x, offs3, bit=0, tile=rtile,
                                                             out=y3), x3),
+                      "copy_ms": copy_ms(x3, y3),
                       "plain_ms": ms(lambda x: radix.reorder_pass_plain(
                           x, offs3, bit=0, tile=rtile, out=y3), x3, iters=3),
                       "bound_ms": bound(2 * 3 * 4 * n + 4 * radix.R * nb, 2 * n)[0]}))
@@ -766,6 +780,7 @@ def run(dev) -> None:
         print(json.dumps({"calls_of": "reorder_kernel", "columns": cols,
                           "ms": ms(lambda x: radix.reorder_pass(x, offs3, bit=0, tile=rtile,
                                                                 out=yc), xc),
+                          "copy_ms": copy_ms(xc, yc),
                           "plain_ms": ms(lambda x: radix.reorder_pass_plain(
                               x, offs3, bit=0, tile=rtile, out=yc), xc, iters=3),
                           "bound_ms": bound(2 * cols * 4 * n + 4 * radix.R * nb, 2 * n)[0]}))
@@ -777,6 +792,8 @@ def run(dev) -> None:
     check(len(tile_spills) == 18 and not spilled,
           f"bitonic_tile_kernel with 2 or 3 columns spills no registers "
           f"(ptxas spill stores in bytes: {spilled})")
+    check(len(reorder_spills) == 1 and not any(reorder_spills.values()),
+          f"reorder_kernel spills no registers (ptxas spill stores in bytes: {reorder_spills})")
     kernels = []
     for k in _build.KERNELS:
         r = rows[k.name]

@@ -7,12 +7,15 @@ checkout of the repository, on one CUDA card.
 imports ``tpu_radix_sort_torch`` from DIR (default: beside this script),
 builds its kernels there, and prints one JSON line: the card's name and power
 limit; K4 on 2^26 u32 (inclusive scan) beside ``torch.cumsum``, and the radix
-sort's 65,536-entry table scan with its launches; the K1 tile kernel's
-phase-1 call and mean merge-tail call, replayed call by call on the 2^26
-u32 key+rank (2 columns) and u64 key+rank (3 columns) networks; the 2^26
-key+rank sorts through both engines beside ``torch.sort``; and a tile call
-with no stages (the device-memory round trip alone). Every time is the
-mean of CUDA-event windows after a warm-up. Running it on two checkouts in
+sort's table scan with its launches; K6 on pass 0 of the 2^26 radix sort
+with 1, 2, 3 and 6 columns, each beside a device ``copy_`` of the same
+columns and its bound (one read and one write of them at 3.35 TB/s); the K1
+tile kernel's phase-1 call and mean merge-tail call, replayed call by call
+on the 2^26 u32 key+rank (2 columns) and u64 key+rank (3 columns) networks;
+the 2^26 key+rank sorts through both engines beside ``torch.sort`` and the
+bfloat16 key+rank radix sort; and a tile call with no stages (the
+device-memory round trip alone). Every time is the mean of CUDA-event
+windows after a warm-up. Running it on two checkouts in
 turns on one machine (A, B, B, A) compares them on one card. It uses only
 entry points that every slice of the port has had since the radix engine.
 """
@@ -26,6 +29,7 @@ from pathlib import Path
 
 N = 1 << 26
 SEED = 20261017
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 
 
 def main() -> int:
@@ -74,6 +78,24 @@ def main() -> int:
         "table_launches": table_launches,
     }
 
+    # K6 on pass 0 at the checkout's default tile: the key column, the rank
+    # and random payload columns
+    tile = radix.DEFAULT_TILE
+    offs0 = radix.bucket_offsets(radix.digit_histogram(keys, bit=0, tile=tile))
+    x6 = torch.cat([torch.stack([keys, iota]),
+                    torch.randint(-2**31, 2**31, (4, N), dtype=torch.int32, device="cuda",
+                                  generator=gen)])
+    out["k6"] = {"tile": tile}
+    for cols in (1, 2, 3, 6):
+        x, y = x6[:cols], torch.empty_like(x6[:cols])
+        out["k6"][f"columns_{cols}"] = {
+            "ms": ms(lambda a: radix.reorder_pass(a, offs0, bit=0, tile=tile, out=y), x),
+            "copy_ms": ms(lambda a: y.copy_(a), x),
+            "bound_ms": (2 * cols * 4 * N + 4 * offs0.numel()) / HBM_BYTES_PER_S * 1e3,
+        }
+        del x, y
+    del x6
+
     def tile_calls(x, n_keys):
         n_arr, n = x.shape
         tile = bitonic.resolve_tile(n, n_arr)
@@ -106,6 +128,7 @@ def main() -> int:
     }
     del hi, lo
     ku, iu, k64u = keys.view(torch.uint32), iota.view(torch.uint32), k64.view(torch.uint64)
+    b16 = (keys & 0xFFFF).to(torch.int16).view(torch.bfloat16)
     out["sorts"] = {
         "u32_key_rank_ms": ms(lambda k, v: trt.sort(k, v, values_are_ranks=True), ku, iu,
                               iters=10),
@@ -117,6 +140,7 @@ def main() -> int:
         "u64_radix_ms": ms(lambda k, v: trt.sort(k, v, method="radix"), k64u, iu, iters=10),
         "u64_torch_sort_ms": ms(lambda k: torch.sort(k ^ (-2**63), stable=True), k64,
                                 iters=10),
+        "bf16_radix_ms": ms(lambda k, v: trt.sort(k, v, method="radix"), b16, iu, iters=10),
     }
     print(json.dumps({"kernel_times": out}), flush=True)
     return 0

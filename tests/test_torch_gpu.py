@@ -131,23 +131,33 @@ def test_scan_kernel_matches_plain(cuda, n, inclusive):
 
 
 @pytest.mark.parametrize("n_arr", [1, 2, 3, 4, 5, 6])
-@pytest.mark.parametrize("tile", [32, 256, 4096, 1 << 16])
-def test_radix_kernels_match_plain(cuda, n_arr, tile):
-    rng = np.random.default_rng(n_arr * tile)
-    n = (1 << 18) + 3
-    x = torch.from_numpy(rng.integers(-2**31, 2**31, (n_arr, n), dtype=np.int64)
-                         .astype(np.int32)).to(cuda)
-    x[0, ::7] = 12345  # one digit run across tiles
-    for bit in (0, 14, 30):
-        h0, r0 = _build.DIGIT_HISTOGRAM.launches, _build.REORDER.launches
-        hist = radix.digit_histogram(x[0], bit=bit, tile=tile)
-        assert torch.equal(hist, radix.digit_histogram_plain(x[0], bit=bit, tile=tile))
-        offs = radix.bucket_offsets(hist)
-        got = radix.reorder_pass(x, offs, bit=bit, tile=tile)
-        want = radix.reorder_pass_plain(x, offs, bit=bit, tile=tile, out=torch.empty_like(x))
-        torch.cuda.synchronize()
-        assert torch.equal(got, want), bit
-        assert (_build.DIGIT_HISTOGRAM.launches, _build.REORDER.launches) == (h0 + 1, r0 + 1)
+@pytest.mark.parametrize("tile", [32, 128, 256, 4096, 1 << 16])
+@pytest.mark.parametrize("keys", ["random", "all-equal"])
+def test_radix_kernels_match_plain(cuda, n_arr, tile, keys):
+    """K5 and K6 against their plain versions, one launch each per pass.
+    Tiles below K6's 4,096-element chunk (32 and 128: one warp, part of its
+    items empty) and above it (2^16: 16 chunks a block); n = 1,000 is below
+    one chunk, and 2^18 + 3 leaves a last tile of 3 keys, shorter than a
+    warp. All-equal keys put a whole tile of 2^16 in one digit run."""
+    rng = np.random.default_rng(n_arr * tile + (keys == "all-equal"))
+    for n in (1000, (1 << 18) + 3):
+        x = torch.from_numpy(rng.integers(-2**31, 2**31, (n_arr, n), dtype=np.int64)
+                             .astype(np.int32)).to(cuda)
+        if keys == "all-equal":
+            x[0] = -0x21524111  # 0xDEADBEEF
+        else:
+            x[0, ::7] = 12345  # one digit run across tiles
+        for bit in (0, 14, 30):
+            h0, r0 = _build.DIGIT_HISTOGRAM.launches, _build.REORDER.launches
+            hist = radix.digit_histogram(x[0], bit=bit, tile=tile)
+            assert torch.equal(hist, radix.digit_histogram_plain(x[0], bit=bit, tile=tile))
+            offs = radix.bucket_offsets(hist)
+            got = radix.reorder_pass(x, offs, bit=bit, tile=tile)
+            want = radix.reorder_pass_plain(x, offs, bit=bit, tile=tile,
+                                            out=torch.empty_like(x))
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (n, bit)
+            assert (_build.DIGIT_HISTOGRAM.launches, _build.REORDER.launches) == (h0 + 1, r0 + 1)
 
 
 def test_radix_sort_on_card_matches_torch_sort(cuda):

@@ -180,6 +180,23 @@ def test_plain_versions_match_numpy():
     assert _eq(out, np.stack([k[order], order.astype(np.uint32)]))
 
 
+@pytest.mark.parametrize("keys", ["all-equal", "random"])
+def test_reorder_plain_at_the_largest_tile(keys):
+    """One tile of 2^16 and a ragged last tile of 5: with all-equal keys
+    one digit run fills the whole tile (K6 counts it in 32 bits)."""
+    rng = np.random.default_rng(6)
+    n, tile = (1 << 16) + 5, 1 << 16
+    k = np.full(n, 0xDEADBEEF, np.uint32) if keys == "all-equal" else _u32(rng, n)
+    cols = np.stack([k, _u32(rng, n), np.arange(n, dtype=np.uint32)])
+    x = _i32(cols)
+    for bit in (0, 2, 16, 30):
+        hist = radix.digit_histogram_plain(x[0], bit=bit, tile=tile)
+        out = radix.reorder_pass_plain(x, radix.bucket_offsets(hist), bit=bit, tile=tile,
+                                       out=torch.empty_like(x))
+        order = np.argsort((k >> np.uint32(bit)) & np.uint32(3), kind="stable")
+        assert _eq(out, cols[:, order])
+
+
 def test_input_errors():
     x = torch.zeros((2, 100), dtype=torch.int32)
     offs = radix.bucket_offsets(radix.digit_histogram(x[0], bit=0, tile=64))

@@ -13,18 +13,33 @@
 //       offs[r * nblocks + b] + (the number of earlier elements of tile b
 //       with digit r), offs being the exclusive scan of the digit-major
 //       histogram; all n_arr columns move with the key (column 0).
-// The TPU reorder compacts each block's digit runs with log-stride shifts
-// in VMEM and writes them with read-merge-write window DMAs, which relies on
-// the sequential grid. Here each element is scattered straight to its place,
-// the reference's own reorder (RadixSortReorder.ts:97-101). The block walks
-// its tile in rounds of blockDim elements: per warp, one __ballot_sync per
-// digit and __popc of the lanes below give the rank inside the warp, the
-// warp counts pass through shared memory, and a running count per digit
-// carries the rank across rounds. Both kernels must be given the same tile.
+// Both kernels must be given the same tile.
 //
 // Bound on this card: the histogram reads 4 * n bytes; the reorder reads
-// and writes n_arr * 4 * n bytes, at 3.35 TB/s. The scatter writes four
-// runs per warp and round, so its stores are only partly coalesced.
+// and writes n_arr * 4 * n bytes, at 3.35 TB/s. The reorder's design keeps
+// a whole chunk of every column in flight and writes whole runs, as the TPU
+// kernel does by compacting each block's digit runs in VMEM first:
+// - a block owns one tile and walks it in chunks of kItems = 16 elements a
+//   thread (4,096 with 256 threads, one chunk per default tile; a smaller
+//   tile is one chunk with fewer threads, reorder_plan). Every column of a
+//   chunk is copied into shared memory with cp.async (16 bytes a copy where
+//   aligned), all copies issued before the block waits for any;
+// - the chunk is ranked at once from the key column. Thread t holds 16
+//   consecutive elements and counts their digits; an exclusive scan of the
+//   counts over the warp's lanes (shuffles) and one digit-major scan of the
+//   warps' totals (every warp computes it from shared memory after one
+//   barrier) give each element its position in the chunk's digit-sorted
+//   order, stable in element order. No ballot or popc per element;
+// - each column is then written to shared memory at those positions and
+//   read back in order: thread t takes slots t, t + threads, ..., and slot s
+//   of run r goes to out[offs[r, b] + (earlier chunks' run r) + s - start[r]].
+//   A warp's store is 32 consecutive words, cut at most at a run boundary.
+//   The shuffle of column c goes into the area column c - 1 came in, so one
+//   barrier per column suffices. Both shared layouts are swizzled so that
+//   the copy-in, the per-thread reads, the in-order reads and the scatter
+//   of all-equal keys (one digit run) meet no bank conflicts.
+// 64 registers a thread (4 blocks an SM), no spills; shared memory (n_arr
+// + 1) * 16 KB a block. Counts are 32-bit where they reach a tile's 2^16.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -33,6 +48,10 @@ namespace {
 constexpr unsigned kMaxThreads = 256;
 constexpr unsigned kMaxWarps = kMaxThreads / 32;
 constexpr unsigned kFull = 0xffffffffu;
+// reorder: elements a thread holds per chunk, and the largest chunk
+constexpr unsigned kItems = 16;
+constexpr unsigned kWarpSpan = 32 * kItems;
+constexpr unsigned kMaxChunk = kMaxThreads * kItems;
 
 __device__ __forceinline__ unsigned pick(const unsigned (&a)[4], unsigned r) {
   return r == 0 ? a[0] : r == 1 ? a[1] : r == 2 ? a[2] : a[3];
@@ -67,57 +86,190 @@ __global__ void digit_histogram_kernel(const unsigned* __restrict__ x, unsigned 
   }
 }
 
-__global__ void reorder_kernel(const unsigned* __restrict__ src, unsigned* __restrict__ dst,
-                               unsigned n, int n_arr, unsigned bit, unsigned tile,
-                               unsigned nblocks, const unsigned* __restrict__ offs) {
-  // Warp counts of a round, double-buffered so that one __syncthreads()
-  // per round suffices: round r writes buffer r & 1, and a thread writes
-  // that buffer again only after the next round's barrier, which every
-  // reader of it has passed.
-  __shared__ __align__(16) unsigned counts[2][kMaxWarps][4];
+__device__ __forceinline__ void cp_async4(unsigned* sh, const unsigned* g) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(sh)), "l"(g) : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(unsigned* sh, const unsigned* g) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(sh)), "l"(g) : "memory");
+}
+
+// Shared-memory layouts of a chunk column (both permutations of its words):
+// - as copied in, 16-byte granule g at granule g ^ ((g >> 3) & 7), so that
+//   a warp reading 16 consecutive words a lane (four 16-byte loads) hits
+//   every bank once per quarter-warp;
+// - as shuffled, word p at row p >> 5, column (p ^ (p >> 5)) & 31, so that
+//   a warp reading 32 consecutive slots, or writing one digit run from a
+//   multiple of 32 on, 16 slots a lane apart, hits every bank once.
+__device__ __forceinline__ unsigned granule_at(unsigned g) { return g ^ ((g >> 3) & 7u); }
+__device__ __forceinline__ unsigned slot_at(unsigned p) {
+  return (p & ~31u) | ((p ^ (p >> 5)) & 31u);
+}
+
+// Starts the copy of `len` words from col into sh in the copied-in layout:
+// whole granules where col is 16-byte aligned and len a multiple of 4, else
+// word by word.
+__device__ __forceinline__ void copy_chunk(unsigned* sh, const unsigned* col, unsigned len) {
+  if (((uintptr_t)col & 15) == 0 && (len & 3) == 0) {
+    for (unsigned g = threadIdx.x; g < len / 4; g += blockDim.x)
+      cp_async16(sh + 4 * granule_at(g), col + 4 * g);
+  } else {
+    for (unsigned i = threadIdx.x; i < len; i += blockDim.x)
+      cp_async4(sh + 4 * granule_at(i >> 2) + (i & 3u), col + i);
+  }
+}
+
+// This thread's kItems consecutive words of a chunk column, from `first`;
+// 0 for a granule that starts at or past `len` (a ragged or small tile).
+__device__ __forceinline__ void load_items(const unsigned* sh, unsigned first, unsigned len,
+                                           unsigned (&v)[kItems]) {
+#pragma unroll
+  for (unsigned q = 0; q < kItems / 4; ++q) {
+    const unsigned g = first / 4 + q;
+    const uint4 x = first + 4 * q < len
+                        ? *reinterpret_cast<const uint4*>(sh + 4 * granule_at(g))
+                        : make_uint4(0u, 0u, 0u, 0u);
+    v[4 * q] = x.x;
+    v[4 * q + 1] = x.y;
+    v[4 * q + 2] = x.z;
+    v[4 * q + 3] = x.w;
+  }
+}
+
+// The 16-bit field r of a (lo, hi) pair holding four: fields 0, 1 in lo.
+__device__ __forceinline__ unsigned field(unsigned lo, unsigned hi, unsigned r) {
+  return ((r & 2u ? hi : lo) >> (16 * (r & 1u))) & 0xffffu;
+}
+
+// Dynamic shared memory: n_arr + 1 areas of `chunk` words. Column c of a
+// chunk arrives in area c; it is shuffled into the area of column c - 1
+// (column 0 into area n_arr), whose words were all read before the
+// previous column's barrier. Thread t of warp w holds chunk elements
+// 512 w + 16 l + k, k < kItems (l its lane): element order is (warp, lane,
+// item), so a thread's count of each digit, one exclusive scan over the
+// warp's lanes and one over the block's warps give every rank.
+__global__ void __launch_bounds__(kMaxThreads, 4)
+reorder_kernel(const unsigned* __restrict__ src, unsigned* __restrict__ dst, unsigned n,
+               int n_arr, unsigned bit, unsigned tile, unsigned chunk, unsigned nblocks,
+               const unsigned* __restrict__ offs) {
+  extern __shared__ __align__(16) unsigned smem[];
+  __shared__ unsigned warp_counts[4 * kMaxWarps];  // digit-major [4][nwarps]
   const unsigned lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const unsigned nwarps = blockDim.x >> 5;
-  const unsigned lanes_below = (1u << lane) - 1u;
+  const unsigned first = warp * kWarpSpan + lane * kItems;  // this thread's first element
   const unsigned base = blockIdx.x * tile;
   const unsigned end = n - base < tile ? n : base + tile;
-  // next output position of this tile's run of each digit
+  // output position of the next element of each digit run of this tile
   unsigned next[4];
 #pragma unroll
   for (unsigned r = 0; r < 4; ++r) next[r] = offs[r * nblocks + blockIdx.x];
-  unsigned p = 0;
-  for (unsigned i0 = base; i0 < end; i0 += blockDim.x, p ^= 1) {
-    const unsigned i = i0 + threadIdx.x;
-    const bool valid = i < end;
-    const unsigned key = valid ? src[i] : 0u;
-    const unsigned d = valid ? (key >> bit) & 3u : 4u;  // 4: no digit
-    unsigned rank = 0;
+  for (unsigned c0 = base; c0 < end; c0 += chunk) {
+    const unsigned len = end - c0 < chunk ? end - c0 : chunk;
+    if (c0 != base) __syncthreads();  // the last chunk's stores have read smem
+    for (int c = 0; c < n_arr; ++c) copy_chunk(smem + c * chunk, src + (size_t)c * n + c0, len);
+    asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+    __syncthreads();
+
+    // this thread's digits (2 bits each) and its count of each (8 bits each)
+    unsigned digits = 0, counts = 0;
+    {
+      unsigned v[kItems];
+      load_items(smem, first, len, v);
 #pragma unroll
-    for (unsigned r = 0; r < 4; ++r) {
-      const unsigned ballot = __ballot_sync(kFull, d == r);
-      if (lane == 0) counts[p][warp][r] = __popc(ballot);
-      if (d == r) rank = __popc(ballot & lanes_below);
+      for (unsigned k = 0; k < kItems; ++k) {
+        const unsigned d = (v[k] >> bit) & 3u;
+        digits |= d << (2 * k);
+        if (first + k < len) counts += 1u << (8 * d);
+      }
+    }
+    // exclusive scan over the warp's lanes, 16-bit fields (lo: digits 0, 1)
+    const unsigned lo = __byte_perm(counts, 0, 0x4140), hi = __byte_perm(counts, 0, 0x4342);
+    unsigned inc_lo = lo, inc_hi = hi;
+#pragma unroll
+    for (unsigned o = 1; o < 32; o <<= 1) {
+      const unsigned t_lo = __shfl_up_sync(kFull, inc_lo, o);
+      const unsigned t_hi = __shfl_up_sync(kFull, inc_hi, o);
+      if (lane >= o) {
+        inc_lo += t_lo;
+        inc_hi += t_hi;
+      }
+    }
+    if (lane == 31) {
+#pragma unroll
+      for (unsigned r = 0; r < 4; ++r) warp_counts[r * nwarps + warp] = field(inc_lo, inc_hi, r);
     }
     __syncthreads();
-    unsigned total[4] = {0u, 0u, 0u, 0u};
-    for (unsigned w = 0; w < nwarps; ++w) {
-      const uint4 c = *reinterpret_cast<const uint4*>(counts[p][w]);
-      if (w < warp) {
-        rank += d == 0 ? c.x : d == 1 ? c.y : d == 2 ? c.z : d == 3 ? c.w : 0u;
-      }
-      total[0] += c.x;
-      total[1] += c.y;
-      total[2] += c.z;
-      total[3] += c.w;
+    // the digit-major exclusive scan of the warp counts: entry r * nwarps + w
+    // is where warp w's digit-r elements start in the chunk's sorted order
+    const unsigned cnt = lane < 4 * nwarps ? warp_counts[lane] : 0u;
+    unsigned incl = cnt;
+#pragma unroll
+    for (unsigned o = 1; o < 32; o <<= 1) {
+      const unsigned t = __shfl_up_sync(kFull, incl, o);
+      if (lane >= o) incl += t;
     }
-    if (valid) {
-      const unsigned pos = pick(next, d) + rank;
-      dst[pos] = key;
-      for (int c = 1; c < n_arr; ++c) dst[(size_t)c * n + pos] = src[(size_t)c * n + i];
+    const unsigned excl = incl - cnt;
+    unsigned start[4], mine[4], delta[4];
+#pragma unroll
+    for (unsigned r = 0; r < 4; ++r) {
+      start[r] = __shfl_sync(kFull, excl, r * nwarps);
+      mine[r] = __shfl_sync(kFull, excl, r * nwarps + warp);
+    }
+    // the chunk position of this thread's next element of each digit, 16
+    // bits each (below 2^13: no carry between fields)
+    unsigned long long at = (unsigned long long)((mine[2] | mine[3] << 16) + inc_hi - hi) << 32 |
+                            ((mine[0] | mine[1] << 16) + inc_lo - lo);
+    unsigned pos[kItems];
+#pragma unroll
+    for (unsigned k = 0; k < kItems; ++k) {
+      const unsigned sh16 = 16 * ((digits >> (2 * k)) & 3u);
+      pos[k] = slot_at((unsigned)(at >> sh16) & 0xffffu);
+      at += 1ull << sh16;
     }
 #pragma unroll
-    for (unsigned r = 0; r < 4; ++r) next[r] += total[r];
+    for (unsigned r = 0; r < 4; ++r) {
+      // slot s of run r goes to delta[r] + s; the next chunk's runs follow
+      delta[r] = next[r] - start[r];
+      next[r] += (r < 3 ? start[r + 1] : len) - start[r];
+    }
+
+    for (int c = 0; c < n_arr; ++c) {
+      unsigned* sh = smem + (c == 0 ? n_arr : c - 1) * chunk;
+      unsigned v[kItems];
+      load_items(smem + c * chunk, first, len, v);
+#pragma unroll
+      for (unsigned k = 0; k < kItems; ++k)
+        if (first + k < len) sh[pos[k]] = v[k];
+      __syncthreads();
+      unsigned* out = dst + (size_t)c * n;
+#pragma unroll
+      for (unsigned k = 0; k < kItems; ++k) {
+        const unsigned s = threadIdx.x + k * blockDim.x;
+        if (s < len) {
+          const unsigned r = (s >= start[1]) + (s >= start[2]) + (s >= start[3]);
+          out[pick(delta, r) + s] = sh[slot_at(s)];
+        }
+      }
+    }
   }
 }
+
+// Threads, chunk and dynamic shared memory of a reorder block: kItems
+// elements a thread, 32 to kMaxThreads threads; a tile of fewer than 512
+// elements leaves part of its one warp's items empty.
+void reorder_plan(long long tile, int n_arr, unsigned* threads, unsigned* chunk,
+                  unsigned* smem_bytes) {
+  long long t = tile / kItems;
+  t = t < 32 ? 32 : t > kMaxThreads ? kMaxThreads : t;
+  *threads = (unsigned)t;
+  *chunk = (unsigned)(tile < t * kItems ? tile : t * kItems);
+  *smem_bytes = (unsigned)(n_arr + 1) * *chunk * 4u;
+}
+// the widest plan fits an SM's 227 KB of shared memory a block
+static_assert((6 + 1) * kMaxChunk * 4 + sizeof(unsigned) * 4 * kMaxWarps <= 232448,
+              "reorder_kernel's shared memory");
 
 cudaError_t check_tile(long long n, long long tile, int bit) {
   // tile: a power of two in [32, 2^16]; n < 2^31; bit in [0, 30]
@@ -154,10 +306,16 @@ int trs_reorder(const void* src, void* dst, long long n, int n_arr, int bit, lon
   if (err != cudaSuccess) return err;
   if (n_arr < 1 || n_arr > 6) return cudaErrorInvalidValue;
   const unsigned nblocks = (unsigned)((n + tile - 1) / tile);
-  const unsigned threads = tile < kMaxThreads ? (unsigned)tile : kMaxThreads;
-  reorder_kernel<<<nblocks, threads, 0, (cudaStream_t)stream>>>(
+  unsigned threads, chunk, smem_bytes;
+  reorder_plan(tile, n_arr, &threads, &chunk, &smem_bytes);
+  if (smem_bytes + sizeof(unsigned) * 4 * kMaxWarps > 48 * 1024) {  // with warp_counts
+    err = cudaFuncSetAttribute(reorder_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem_bytes);
+    if (err != cudaSuccess) return err;
+  }
+  reorder_kernel<<<nblocks, threads, smem_bytes, (cudaStream_t)stream>>>(
       (const unsigned*)src, (unsigned*)dst, (unsigned)n, n_arr, (unsigned)bit,
-      (unsigned)tile, nblocks, (const unsigned*)offs);
+      (unsigned)tile, chunk, nblocks, (const unsigned*)offs);
   return cudaGetLastError();
 }
 
