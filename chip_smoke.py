@@ -12,16 +12,24 @@ payload) through both sort engines (the bitonic network and
 ``method='radix'``), the mid-sort early exit, ``prefix_sum`` and the other
 options, then 64-bit keys (u64 key + rank, keys-only, float64 total order,
 the 7-column bitonic and 6-column radix paths, the two-column order-check
-gate, ``is_sorted``/``disorder_count``) and bfloat16 keys at 2^26; checks
-every result byte for byte, times the sorts, the scan, each kernel, its
-plain version and ``torch.sort``/``torch.cumsum`` (K1's tile calls split
-into phase 1 and the mean merge tail; K4 also at a 4-byte offset and 20
-times in a row at 2^26; K2 20 calls back to back; K6 with 1 to 6 columns,
-each beside a device ``copy_`` of the same columns), and prints:
+gate, ``is_sorted``/``disorder_count``) and bfloat16 keys at 2^26; then,
+as a path of its own with its own launch counts, the batched and
+segmented sorts at 2^24 (1,024 rows of 16,384, keys-only and with a
+per-row iota; S = 4,096 Zipf-sized and S = 1,024 equal segments;
+``argsort_segments``) and the 8-column, 4-key-word 64-bit segmented sort
+at 2^22; checks every result byte for byte, times the sorts, the scan,
+each kernel, its plain version and ``torch.sort``/``torch.cumsum`` (K1's
+replayed calls each the median of several, its tile calls split into
+phase 1 and the mean merge tail, the row-local network (the batched
+sorts' own two networks among them) and every 4-key or 8-column instance
+replayed too; K4 also at a 4-byte offset and 20 times
+in a row at 2^26; K2 20 calls back to back; K6 with 1 to 6 columns, each
+beside a device ``copy_`` of the same columns), and prints:
 
 - the card's name and power limit (``nvidia-smi``) and the build's register,
   shared-memory and spill lines (it fails if the K1 tile kernel spills with
-  2 or 3 columns, or the K6 reorder kernel spills at all);
+  2 or 3 columns, either K1 kernel with 4 key words or 8 columns, or the K6
+  reorder kernel at all);
 - one line per check;
 - one JSON line ``{"kernels": [...]}``;
 - last, ``{"ok": true, "device": {...}}``.
@@ -49,6 +57,10 @@ SPLIT_N = 40_000_000
 OPTION_N = 1 << 22
 SMALL_N = (1 << 16) + 3
 CHECK_N = (1 << 24) + 3  # the order-check kernels against their plain versions
+SLICE_N = 1 << 24  # the batched and segmented sorts (benchmarks/workloads.py)
+REPLAY_REPEATS = 5  # kernel calls timed per replayed call; the median counts
+# the K1 instances (columns, key words) that the segmented sorts added
+NEW_K1 = ((4, 4), (5, 4), (6, 4), (7, 4), (8, 1), (8, 2), (8, 3), (8, 4))
 SEED = 20261016
 # The TPU kernel each CUDA kernel replaces (the Pallas kernel function).
 REPLACES = {
@@ -126,7 +138,7 @@ def main() -> int:
         import tpu_radix_sort_torch as trt
         from tpu_radix_sort_torch import _build
         from tpu_radix_sort_torch.models.golden import golden_prefix_sum, golden_sort
-        from tpu_radix_sort_torch.ops import bitonic, checksort, common, radix, scan
+        from tpu_radix_sort_torch.ops import bitonic, checksort, common, radix, scan, segmented
         from tpu_radix_sort_torch.runtime.timing import device_time
     except ImportError as e:
         print(f"chip_smoke: the port is not importable here: {e}", file=sys.stderr)
@@ -152,7 +164,7 @@ def run(dev) -> None:
     import tpu_radix_sort_torch as trt
     from tpu_radix_sort_torch import _build
     from tpu_radix_sort_torch.models.golden import golden_prefix_sum, golden_sort
-    from tpu_radix_sort_torch.ops import bitonic, checksort, common, radix, scan
+    from tpu_radix_sort_torch.ops import bitonic, checksort, common, radix, scan, segmented
     from tpu_radix_sort_torch.runtime.timing import device_time
 
     t_start = time.perf_counter()
@@ -174,6 +186,8 @@ def run(dev) -> None:
                       f"{spills.get(entry, 0)} bytes spill stores")
     tile_spills = {m.groups(): b for e, b in spills.items()
                    if (m := re.search(r"bitonic_tile_kernelILi(\d)ELi(\d)E", e))}
+    global_spills = {m.groups(): b for e, b in spills.items()
+                     if (m := re.search(r"bitonic_global_stage_kernelILi(\d)ELi(\d)E", e))}
     reorder_spills = {e: b for e, b in spills.items() if "reorder_kernel" in e}
 
     gen = torch.Generator(device=dev)
@@ -518,6 +532,81 @@ def run(dev) -> None:
         check(c > 0, f"{name} launched on the main path ({c})")
     del small
 
+    # ---- the batched and segmented sorts: this path's own counts ----------
+    # benchmarks/workloads.py:236-259: 2^24 u32 keys as 1,024 rows of
+    # 16,384 (batched), as S = 4,096 segments of Zipf sizes (a seeded
+    # multinomial, every segment >= 1) and as S = 1,024 equal segments
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    n_rows, row = 1024, SLICE_N // 1024
+    kb = rand_u32(SLICE_N).view(n_rows, row)
+    row_ranks = torch.arange(row, dtype=torch.int32, device=dev).expand(n_rows, row)
+    row_ranks = row_ranks.contiguous().view(torch.uint32)
+
+    def rows_ref(k):
+        sk, idx = torch.sort(common.bias_i32(k.view(torch.int32)), dim=1, stable=True)
+        return common.bias_i32(sk).view(torch.uint32), idx.to(torch.int32).view(torch.uint32)
+
+    rbk, rbv = rows_ref(kb)
+    o = drive("batched keys-only 1024x16384", lambda: trt.sort_batched(kb))
+    check(same(o, rbk), "sort_batched(1,024 x 16,384 u32) == torch.sort(dim=1)")
+    o = drive("batched k+iota 1024x16384",
+              lambda: trt.sort_batched(kb, row_ranks, values_are_ranks=True))
+    check(same(o[0], rbk) and same(o[1], rbv),
+          "sort_batched(1,024 x 16,384 u32, per-row iota, values_are_ranks=True) == "
+          "torch.sort(dim=1, stable=True)")
+
+    nrng = np.random.default_rng(SEED)
+
+    def zipf_offsets(n, segs):
+        w = nrng.zipf(1.3, segs).astype(np.float64)
+        sizes = nrng.multinomial(n - segs, w / w.sum()).astype(np.int64) + 1
+        return torch.from_numpy(np.concatenate([[0], np.cumsum(sizes)])).to(dev)
+
+    def seg_word(k_lo, offs, key_bits=32):
+        """int64 (segment << key_bits) | key: its stable sort is the
+        segmented sort's order."""
+        seg = torch.repeat_interleave(torch.arange(offs.numel() - 1, device=dev), offs.diff())
+        return (seg << key_bits) | k_lo, offs[seg]
+
+    ks = kb.reshape(-1)
+    zipf = zipf_offsets(SLICE_N, 4096)
+    equal = torch.arange(1025, dtype=torch.int64, device=dev) * row
+    z_word, z_start = seg_word(ks.view(torch.int32).to(torch.int64) & 0xFFFFFFFF, zipf)
+    zw_sorted, z_idx = torch.sort(z_word, stable=True)
+    o = drive("segmented S=4096 Zipf keys-only 2^24", lambda: trt.sort_segments(ks, zipf))
+    check(same(o, zw_sorted.to(torch.int32).view(torch.uint32)),
+          "sort_segments(2^24 u32, S = 4,096 Zipf sizes) == torch.sort of (segment, key)")
+    o = drive("segmented S=1024 equal keys-only 2^24", lambda: trt.sort_segments(ks, equal))
+    check(same(o, rbk.reshape(-1)),
+          "sort_segments(2^24 u32, S = 1,024 equal) == the batched rows' torch.sort")
+    o = drive("argsort_segments S=4096 Zipf 2^24", lambda: trt.argsort_segments(ks, zipf))
+    check(same(o.view(torch.int32), (z_idx - z_start).to(torch.int32)),
+          "argsort_segments(2^24 u32, S = 4,096 Zipf) == torch.sort's order minus the starts")
+    del zw_sorted, z_idx, z_start
+    # 64-bit keys, bit_count 40, u64 values: (segment, hi, lo, tie), the full
+    # key's hi and lo, the value's hi and lo: 8 columns, 4 key words
+    k64s, v64s = rand_u64(OPTION_N), rand_u64(OPTION_N)
+    zipf64 = zipf_offsets(OPTION_N, 1024)
+    w64, _ = seg_word(k64s.view(torch.int64) & ((1 << 40) - 1), zipf64, key_bits=40)
+    i64 = torch.sort(w64, stable=True)[1]
+    o = drive("segmented u64 bit_count=40 u64 values 2^22",
+              lambda: trt.sort_segments(k64s, zipf64, v64s, bit_count=40))
+    check(same(o[0], k64s.view(torch.int64)[i64]) and same(o[1], v64s.view(torch.int64)[i64]),
+          "sort_segments(2^22 u64 keys, u64 values, bit_count=40, S = 1,024 Zipf) == "
+          "torch.sort of (segment, low 40 bits)")
+    del i64
+    slice_counts = _build.launch_counts()
+    print(f"launches batched and segmented path: {json.dumps(slice_counts)}", flush=True)
+    for case, d in per_case.items():
+        if case.startswith(("batched", "segmented", "argsort_segments")):
+            seg = not case.startswith("batched")
+            check(d["bitonic_tile_kernel"] > 0
+                  and (not seg or d["bitonic_global_stage_kernel"] > 0 and d["scan_kernel"] > 0),
+                  f"{case}: K1 launched{' (tile and global) and K4' if seg else ''} "
+                  f"({d['bitonic_tile_kernel']}, {d['bitonic_global_stage_kernel']}, "
+                  f"{d['scan_kernel']})")
+
     # ---- times ------------------------------------------------------------
     sort_ms = device_time(lambda k, v: trt.sort(k, v, values_are_ranks=True),
                           keys, iota, warmup=2, iters=10) * 1e3
@@ -579,24 +668,63 @@ def run(dev) -> None:
     }
     del w16
 
+    # the batched and segmented sorts against one torch.sort of the same
+    # keys (the row-wise sort, or the (segment, key) int64 word); bounds:
+    # read the keys (and values) once, write them once
+    e_word, _ = seg_word(ks.view(torch.int32).to(torch.int64) & 0xFFFFFFFF, equal)
+    words = {"zipf": z_word, "equal": e_word, "u64": w64}
+    rows_bias = common.bias_i32(kb.view(torch.int32))
+    slice_rows = []
+    for label, fn, args, lib, lib_args, n_bytes in (
+            ("batched keys-only 1024x16384", trt.sort_batched, (kb,),
+             lambda w: torch.sort(w, dim=1, stable=True), (rows_bias,), 8 * SLICE_N),
+            ("batched k+iota 1024x16384",
+             lambda k, v: trt.sort_batched(k, v, values_are_ranks=True), (kb, row_ranks),
+             lambda w: torch.sort(w, dim=1, stable=True), (rows_bias,), 16 * SLICE_N),
+            ("segmented S=4096 Zipf keys-only 2^24", trt.sort_segments, (ks, zipf),
+             lambda w: torch.sort(w, stable=True), (words["zipf"],), 8 * SLICE_N),
+            ("segmented S=1024 equal keys-only 2^24", trt.sort_segments, (ks, equal),
+             lambda w: torch.sort(w, stable=True), (words["equal"],), 8 * SLICE_N),
+            ("argsort_segments S=4096 Zipf 2^24", trt.argsort_segments, (ks, zipf),
+             lambda w: torch.sort(w, stable=True), (words["zipf"],), 8 * SLICE_N),
+            ("segmented u64 bit_count=40 u64 values 2^22",
+             lambda k, o_, v: trt.sort_segments(k, o_, v, bit_count=40), (k64s, zipf64, v64s),
+             lambda w: torch.sort(w, stable=True), (words["u64"],), 32 * OPTION_N)):
+        slice_rows.append({"phase": label, "ms": t_ms(fn, *args),
+                           "torch_sort_ms": t_ms(lib, *lib_args),
+                           "bound_ms": bound(n_bytes, 0)[0], "launches": {
+                               k: per_case[label][k] for k in
+                               ("bitonic_tile_kernel", "bitonic_global_stage_kernel",
+                                "scan_kernel")}})
+        print(json.dumps(slice_rows[-1]), flush=True)
+    del words, rows_bias, w64, e_word
+
     # Replay a sort's network call by call, each call on the same input
-    # through the kernel and the plain version. The least bytes a call must
-    # move on this data: every key column read once, and for each element
-    # the call moves, its other columns read and all its columns written
-    # (an element left in place needs no write).
+    # through the kernel (REPLAY_REPEATS times, each on a fresh copy; its
+    # time is the median) and the plain version (once). The least bytes a
+    # call must move on this data: every key column read once, and for each
+    # element the call moves, its other columns read and all its columns
+    # written (an element left in place needs no write).
     kind_name = {"tile": "bitonic_tile_kernel", "global": "bitonic_global_stage_kernel"}
 
-    def replay_network(x, n_keys, label):
+    def replay_network(x, n_keys, label, calls=None, tile=None):
+        """`calls` defaults to the full sort's schedule at the largest tile;
+        the row-local network passes its own."""
         n_arr, n = x.shape
-        tile = bitonic.resolve_tile(n, n_arr)
+        if calls is None:
+            tile = bitonic.resolve_tile(n, n_arr)
+            calls = bitonic.sort_schedule(n, tile)
         acc = {name: {"k": [], "p": [], "bytes": 0, "ops": 0} for name in kind_name.values()}
-        for call in bitonic.sort_schedule(n, tile):
+        for call in calls:
             name = kind_name[call[0]]
             a = acc[name]
             stages = call[1] if call[0] == "tile" else [call[1:]]
             want = timed(lambda: bitonic.stages_plain(x.clone(), stages, n_keys), a["p"])
-            got = x.clone()
-            timed(lambda: bitonic.run_schedule(got, [call], n_keys=n_keys, tile=tile), a["k"])
+            reps = []
+            for _ in range(REPLAY_REPEATS):
+                got = x.clone()
+                timed(lambda: bitonic.run_schedule(got, [call], n_keys=n_keys, tile=tile), reps)
+            a["k"].append(reps)
             err = u32_err(got, want)
             max_err[name] = max(max_err[name], err)
             if err:
@@ -607,10 +735,14 @@ def run(dev) -> None:
             x = got
             del want
         for name, a in acc.items():
-            a["ms"], a["plain_ms"] = elapsed_ms(a["k"]), elapsed_ms(a["p"])
+            if not a["k"]:
+                continue
+            a["ms"] = [float(np.median(elapsed_ms(r))) for r in a["k"]]
+            a["plain_ms"] = elapsed_ms(a["p"])
             calls = len(a["ms"])
             line = {"calls_of": name, "network": label, "columns": n_arr,
                     "n_keys": n_keys, "n": n, "tile": tile, "calls": calls,
+                    "repeats": REPLAY_REPEATS,
                     "ms_sum": sum(a["ms"]), "ms_min": min(a["ms"]),
                     "ms_max": max(a["ms"]), "plain_ms_sum": sum(a["plain_ms"]),
                     "bound_ms_sum": bound(a["bytes"], a["ops"])[0],
@@ -648,6 +780,60 @@ def run(dev) -> None:
                              .cpu().numpy(), gv),
           f"K1 == plain per call on the 7-column network (2^22, n_keys 3, tile {t7}) == golden")
     del x, wk, wv, gk, gv, u_hi, u_lo
+    # the batched path's own row-local networks on its own inputs, 1,024
+    # rows of 16,384: keys-only (1 column, 1 key word) and key + per-row
+    # rank (2 columns, the rank the tie)
+    for cols, label in (((kb,), "keys-only"), ((kb, row_ranks), "k+iota")):
+        t, padded = bitonic.rows_layout(n_rows, row, len(cols))
+        check(padded == n_rows, f"the batched {label} network needs no sentinel rows")
+        x, _, _ = replay_network(torch.stack([c.view(torch.int32).reshape(-1) for c in cols]),
+                                 len(cols), f"batched {label} {n_rows} x {row}",
+                                 calls=bitonic.row_schedule(row, t), tile=t)
+        check(same(x[0].view(n_rows, row).view(torch.uint32), rbk)
+              and (len(cols) == 1 or same(x[1].view(n_rows, row).view(torch.uint32), rbv)),
+              f"K1 == plain per call on the batched {label} network, {n_rows} rows of {row} "
+              f"({len(cols)} columns, tile {t}) == torch.sort(dim=1, stable=True)")
+        del x
+    del rbk, rbv
+    # the row-local network (key + global iota), call by call: rows shorter
+    # than the kernel's chunk, one chunk, one tile, and longer than the
+    # tile (global calls, the final round from stride row_len/2)
+    for row_len in (128, 1024, 16384, 65536):
+        for batch in (3, 1000):
+            t, padded = bitonic.rows_layout(batch, row_len, 2)
+            xr = torch.stack([rand_u32(padded * row_len, 1 << 12).view(torch.int32),
+                              torch.arange(padded * row_len, dtype=torch.int32, device=dev)])
+            wk, wi = rows_ref(xr[0].view(padded, row_len).view(torch.uint32))
+            wi = wi.view(torch.int32) + torch.arange(0, padded * row_len, row_len, device=dev,
+                                                     dtype=torch.int32)[:, None]
+            x, _, _ = replay_network(xr, 2, f"row-local {batch} x {row_len}",
+                                     calls=bitonic.row_schedule(row_len, t), tile=t)
+            check(same(x[0].view(padded, row_len).view(torch.uint32), wk)
+                  and same(x[1], wi.reshape(-1)),
+                  f"K1 == plain per call on the row-local network, {batch} rows of {row_len} "
+                  f"(padded to {padded}, tile {t}) == torch.sort(dim=1, stable=True)")
+            del xr, x, wk, wi
+    # the S = 4,096 segmented sort's network, (segment, key) at 2^24
+    seg_ids, _ = segmented.segment_ids_and_starts(zipf, SLICE_N, need_starts=False)
+    x, _, tz = replay_network(torch.stack([seg_ids, ks.view(torch.int32)]), 2,
+                              "segmented (segment, key) S=4096 2^24")
+    check(same(x[1], torch.sort(z_word)[0].to(torch.int32)),
+          f"K1 == plain per call on the S = 4,096 segmented network (2^24, 2 key words, "
+          f"tile {tz}) == torch.sort of (segment, key)")
+    del seg_ids, z_word, x
+    # the instances that 4 key words and 8 columns added, at 2^22: a
+    # low-entropy leading word, a unique last key word
+    for n_arr, n_keys in NEW_K1:
+        xw = torch.stack([rand_u32(OPTION_N, 16).view(torch.int32)]
+                         + [rand_u32(OPTION_N, 4 if c < n_keys - 1 else None).view(torch.int32)
+                            for c in range(1, n_arr)])
+        if n_keys > 1:
+            xw[n_keys - 1] = torch.randperm(OPTION_N, device=dev, generator=gen).to(torch.int32)
+        x, _, tw = replay_network(xw, n_keys, f"{n_arr} columns, {n_keys} key words, 2^22")
+        check(not bool(bitonic._lex_lt(x[:n_keys, 1:], x[:n_keys, :-1]).any()),
+              f"K1 == plain per call and sorted, {n_arr} columns, {n_keys} key words, "
+              f"2^22, tile {tw}")
+        del xw, x
     u = ok.view(torch.int32)
     f_ = checksort.FAST_CHECK_ELEMENTS
     a = {"k": [], "p": [], "bytes": 0, "ops": 0}
@@ -788,10 +974,15 @@ def run(dev) -> None:
     del x3
 
     # checked last, so that a run that fails it still prints its times
-    spilled = {f"{a},{k}": b for (a, k), b in tile_spills.items() if a in ("2", "3") and b}
-    check(len(tile_spills) == 18 and not spilled,
-          f"bitonic_tile_kernel with 2 or 3 columns spills no registers "
-          f"(ptxas spill stores in bytes: {spilled})")
+    new_k1 = {(str(a), str(k)) for a, k in NEW_K1}
+    spilled = {f"{a},{k}": b for (a, k), b in tile_spills.items()
+               if (a in ("2", "3") or (a, k) in new_k1) and b}
+    spilled.update({f"global {a},{k}": b for (a, k), b in global_spills.items()
+                    if (a, k) in new_k1 and b})
+    check(len(tile_spills) == 26 and len(global_spills) == 26 and not spilled,
+          f"bitonic_tile_kernel with 2 or 3 columns, and both K1 kernels of every "
+          f"instance with 4 key words or 8 columns, spill no registers (ptxas spill "
+          f"stores in bytes: {spilled})")
     check(len(reorder_spills) == 1 and not any(reorder_spills.values()),
           f"reorder_kernel spills no registers (ptxas spill stores in bytes: {reorder_spills})")
     kernels = []
@@ -802,7 +993,7 @@ def run(dev) -> None:
             "name": k.name, "route": "cuda",
             "source": f"tpu_radix_sort_torch/csrc/{k.source}.cu",
             "replaces": REPLACES[k.name],
-            "launches": main_counts[k.name],
+            "launches": main_counts[k.name] + slice_counts[k.name],
             "max_abs_err": max_err[k.name],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": r["library_ms"],
@@ -833,6 +1024,9 @@ def run(dev) -> None:
     }}))
     print(json.dumps({"sort64": wide}))
     print(json.dumps({"keys16": keys16}))
+    print(json.dumps({"batched_segmented": slice_rows,
+                      "launches_by_path": {"flat sort": main_counts,
+                                           "batched and segmented": slice_counts}}))
     print(json.dumps({"kernels": kernels}))
 
 

@@ -64,6 +64,7 @@ def test_merge_padded_matches_jax():
 @pytest.mark.parametrize("n_arr,n_keys", [
     (1, 1), (2, 1), (2, 2), (3, 1), (3, 2), (3, 3), (4, 1), (4, 2), (4, 3),
     (5, 1), (5, 2), (5, 3), (6, 1), (6, 2), (6, 3), (7, 1), (7, 2), (7, 3),
+    (4, 4), (5, 4), (6, 4), (7, 4), (8, 1), (8, 2), (8, 3), (8, 4),
 ])
 def test_column_configs_match_numpy(n_arr, n_keys):
     rng = np.random.default_rng(10 * n_arr + n_keys)
@@ -112,9 +113,22 @@ def test_wrappers_refuse_what_the_kernel_does_not_take():
     with pytest.raises(ValueError):
         bitonic.global_stage(x, 4, 256, n_keys=1)  # 2j > n
     with pytest.raises(ValueError):
-        bitonic.global_stage(torch.zeros((8, 256), dtype=torch.int32), 4, 2, n_keys=1)
+        bitonic.global_stage(torch.zeros((9, 256), dtype=torch.int32), 4, 2, n_keys=1)
     with pytest.raises(ValueError):
         bitonic.global_stage(x, 4, 2, n_keys=3)
+    with pytest.raises(ValueError):
+        bitonic.global_stage(torch.zeros((5, 256), dtype=torch.int32), 4, 2, n_keys=5)
+    with pytest.raises(ValueError):  # 2j does not divide the length
+        bitonic.global_stage(torch.zeros((1, 384), dtype=torch.int32), 512, 256, n_keys=1)
+    with pytest.raises(ValueError):  # 3,072 is not a multiple of the 2,048 chunk
+        bitonic.tile_stages(torch.zeros((1, 3072), dtype=torch.int32), [(2, 1)], n_keys=1,
+                            tile=2048)
+    with pytest.raises(ValueError):  # nor of the 1,024 chunk of any smaller tile
+        bitonic.sort_rows_padded_cols(torch.zeros((1, 1536), dtype=torch.int32), row_len=512,
+                                      n_keys=1, tile=512)
+    with pytest.raises(ValueError):
+        bitonic.sort_rows_padded_cols(torch.zeros((1, 2048), dtype=torch.int32), row_len=384,
+                                      n_keys=1, tile=512)
     with pytest.raises(ValueError):
         bitonic.sort_padded((torch.zeros(96, dtype=torch.int32),), stable=False)
     with pytest.raises(ValueError):
@@ -146,3 +160,45 @@ def test_tile_plan_covers_the_stages_in_order(tile):
                    for w, run in runs for _, j in run)
         changes = len(runs) - 1 + (runs[0][0] == 0) + (runs[-1][0] == 0)
         assert changes <= most, (changes, most)
+
+
+def test_row_network_matches_jax_sort_rows_padded():
+    """The row-local network of the batched sorts: 8 rows of 256, key + tie
+    + payload, against the JAX package's (tile 128 there: the merge-round
+    path; here tiles below, at and above the row)."""
+    rng = np.random.default_rng(4)
+    rows, row_len = 8, 256
+    n = rows * row_len
+    k = _u32(rng, n, 40)
+    k[300:420] = 0xFFFFFFFF  # sentinel pads of a short row
+    tie = np.arange(n, dtype=np.uint32)
+    p = _u32(rng, n)
+    p[300:420] = 0
+    cols = [k, tie, p]
+    want = _jax(cols, jbitonic.sort_rows_padded, row_len=row_len, stable=True, block_rows=1)
+    order = np.lexsort((tie, k, np.arange(n) // row_len))
+    assert all(np.array_equal(w, c[order]) for w, c in zip(want, cols))
+    for tile in (None, 64, 256, 1024):
+        x = torch.from_numpy(np.stack(cols).view(np.int32))
+        bitonic.sort_rows_padded_cols(x, row_len=row_len, n_keys=2, tile=tile)
+        assert all(np.array_equal(g, w) for g, w in zip(x.numpy().view(np.uint32), want)), tile
+
+
+@pytest.mark.parametrize("row_len,tile", [(128, 2048), (512, 128), (1024, 64)])
+def test_row_schedule_four_keys_eight_columns_match_numpy(row_len, tile):
+    """The plain version of K1 on a length that is no power of two (3 chunks
+    of 2,048), 4 key words and 8 columns, through the row-local schedule:
+    each row ends in lexicographic order of its key tuples."""
+    rng = np.random.default_rng(row_len + tile)
+    n = 3 * 2048
+    cols = [_u32(rng, n) for _ in range(8)]
+    cols[0] = _u32(rng, n, 3)
+    cols[1] = _u32(rng, n, 2)
+    cols[2] = _u32(rng, n, 3)  # heavy duplicates in the leading three words
+    cols[3] = rng.permutation(n).astype(np.uint32)  # a unique tie
+    x = torch.from_numpy(np.stack(cols).view(np.int32))
+    calls = bitonic.row_schedule(row_len, tile)
+    assert (calls[0][0] == "tile") and any(c[0] == "global" for c in calls) == (row_len > tile)
+    bitonic.run_schedule(x, calls, n_keys=4, tile=tile)
+    order = np.lexsort([c for c in cols[3::-1]] + [np.arange(n) // row_len])
+    assert all(np.array_equal(g, c[order]) for g, c in zip(x.numpy().view(np.uint32), cols))

@@ -1,6 +1,7 @@
 """K1-K6 on the CUDA card against their plain PyTorch versions, and the
 sort engines on the card against golden and `torch.sort`, for 32-, 64- and
-16-bit keys.
+16-bit keys; the row-local K1 schedule, and the batched and segmented
+sorts against golden.
 
 Marked `gpu`; each test asks the `cuda` fixture for the card and skips where
 there is none. On a CUDA machine without JAX, run them apart from the rest of
@@ -41,14 +42,14 @@ def _columns(rng, n_arr, n_keys, n):
 
 _COLUMN_CONFIGS = [
     (1, 1), (2, 1), (2, 2), (3, 1), (3, 2), (3, 3), (4, 2), (4, 3), (5, 2), (5, 3),
-    (6, 3), (7, 2), (7, 3),
+    (6, 3), (7, 2), (7, 3), (4, 4), (5, 4), (6, 4), (7, 4), (8, 1), (8, 2), (8, 3), (8, 4),
 ]
 
 
 @pytest.mark.parametrize("n_arr,n_keys,tile", [
     (a, k, t) for a, k in _COLUMN_CONFIGS
-    for t in (2, 32, 128, 1024, 1 << 14) + (((1 << 15),) if a == 1 else ())
-    if a * t * 4 <= dispatch.SMEM_BUDGET_BYTES
+    for t in (2, 32, 128, 1024, 1 << 12, 1 << 14) + (((1 << 15),) if a == 1 else ())
+    if a * t * 4 <= dispatch.SMEM_BUDGET_BYTES and (t != 1 << 12 or a >= 4)
 ])
 def test_bitonic_kernels_match_plain(cuda, n_arr, n_keys, tile):
     """Every call of a sort's schedule, tiles below one warp's 1,024
@@ -228,3 +229,75 @@ def test_sort64_on_card_matches_torch_sort(cuda, method):
     assert _build.DISORDER_COLS.launches == c0 + 2 and _build.DIGIT_HISTOGRAM.launches == h0
     assert trt.is_sorted(srt) and not trt.is_sorted(kt)
     assert int(trt.disorder_count(kt)) == int(np.count_nonzero(k[:-1] > k[1:]))
+
+
+@pytest.mark.parametrize("rows,row_len,n_arr,n_keys,tile", [
+    (3, 128, 2, 2, None), (1000, 128, 1, 1, None), (5, 1024, 3, 2, None),
+    (3, 4096, 2, 2, 1024), (3, 2048, 8, 4, 256), (2, 8192, 5, 4, None),
+    # the batched sorts' rows of 16,384: keys-only at tile 2^15 (two rows
+    # a chunk) and key + rank
+    (8, 16384, 1, 1, None), (8, 16384, 2, 2, None),
+])
+def test_row_schedule_matches_plain(cuda, rows, row_len, n_arr, n_keys, tile):
+    """The row-local network, call by call, against the plain version on a
+    length padded to whole chunks (no power of two for 3, 5 or 1,000
+    rows); rows longer than the tile run global calls and the final round
+    from stride row_len/2."""
+    t, padded = bitonic.rows_layout(rows, row_len, n_arr, tile)
+    n = padded * row_len
+    x = _columns(np.random.default_rng(rows + row_len), n_arr, n_keys, n).to(cuda)
+    calls = bitonic.row_schedule(row_len, t)
+    assert any(c[0] == "global" for c in calls) == (row_len > t)
+    for call in calls:
+        got = bitonic.run_schedule(x.clone(), [call], n_keys=n_keys, tile=t)
+        stages = call[1] if call[0] == "tile" else [call[1:]]
+        want = bitonic.stages_plain(x.clone(), stages, n_keys)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), call
+        x = got
+    keys = x[:n_keys].cpu().numpy().view(np.uint32)
+    assert np.array_equal(np.lexsort([*keys[::-1], np.arange(n) // row_len]), np.arange(n))
+
+
+def test_batched_and_segmented_on_card_match_golden(cuda):
+    """Both entry points on the card: K1 (and K4 for the segment ids) run,
+    and every row or segment equals the golden sort."""
+    rng = np.random.default_rng(13)
+    B, n = 37, 3000
+    k = rng.integers(0, 2**32, (B, n), dtype=np.uint64).astype(np.uint32)
+    k[3] %= 7
+    v = rng.integers(0, 2**32, (B, n), dtype=np.uint64).astype(np.uint32)
+    t0 = _build.BITONIC_TILE.launches
+    for kw in ({}, {"bit_count": 12, "descending": True}, {"tile": 512}):
+        ok, ov = trt.sort_batched(k, v, **kw)
+        gkw = {a: b for a, b in kw.items() if a != "tile"}
+        for b in range(B):
+            gk, gv = golden_sort(k[b], v[b], **gkw)
+            assert np.array_equal(ok[b].cpu().numpy(), gk), (kw, b)
+            assert np.array_equal(ov[b].cpu().numpy(), gv), (kw, b)
+    assert _build.BITONIC_TILE.launches > t0
+    assert np.array_equal(trt.argsort_batched(k).cpu().numpy(),
+                          np.argsort(k, axis=1, kind="stable"))
+    flat = k.reshape(-1)
+    offs = np.concatenate([[0, 0], np.sort(rng.choice(flat.size, 40, replace=False)),
+                           [flat.size, flat.size]])
+    s0 = _build.SCAN.launches
+    for kw in ({}, {"bit_count": 16}, {"method": "xla"}):
+        got = trt.sort_segments(flat, offs, **kw).cpu().numpy()
+        want = flat.copy()
+        for a, b in zip(offs[:-1], offs[1:]):
+            if b > a:
+                want[a:b] = golden_sort(flat[a:b], **{x: y for x, y in kw.items() if x != "method"})
+        assert np.array_equal(got, want), kw
+    assert _build.SCAN.launches > s0
+    ranks = trt.argsort_segments(flat, offs).cpu().numpy()
+    for a, b in zip(offs[:-1], offs[1:]):
+        assert np.array_equal(ranks[a:b], np.argsort(flat[a:b], kind="stable")), (a, b)
+    k64 = rng.integers(0, 2**64, flat.size, dtype=np.uint64)
+    v64 = rng.integers(0, 2**64, flat.size, dtype=np.uint64)
+    ok, ov = trt.sort_segments(k64, offs, v64, bit_count=40)
+    for a, b in zip(offs[:-1], offs[1:]):
+        if b > a:
+            gk, gv = golden_sort(k64[a:b], v64[a:b], bit_count=40)
+            assert np.array_equal(ok[a:b].cpu().numpy(), gk)
+            assert np.array_equal(ov[a:b].cpu().numpy(), gv)

@@ -34,7 +34,8 @@ class RadixSortKernel:
 
     Options mirror the JAX package's class. `local_shuffle` and
     `avoid_bank_conflicts` are accepted for API compatibility and ignored
-    (WGSL micro-optimizations the reference ships disabled). `device` is
+    (WGSL micro-optimizations the reference ships disabled), and so are the
+    JAX package's `block_rows` and `interpret`. `device` is
     where `compile()` warms up: by default the CUDA card.
     """
 
@@ -52,13 +53,16 @@ class RadixSortKernel:
         value_dtype=torch.uint32,
         method: str = "auto",
         tile: int | None = None,
+        block_rows=None,
+        interpret=None,
         local_shuffle: bool = False,
         avoid_bank_conflicts: bool = False,
         mesh=None,
         axis_name: str = "x",
         device=None,
     ):
-        del local_shuffle, avoid_bank_conflicts, axis_name  # accepted, ignored
+        # accepted, ignored
+        del block_rows, interpret, local_shuffle, avoid_bank_conflicts, axis_name
         common.check_key_dtype(key_dtype)
         # bit_count defaults to 64 for 64-bit keys, whose range is [4, 64],
         # and to 32 otherwise. As in the JAX class, a 16-bit key_dtype also
@@ -127,7 +131,8 @@ class RadixSortPackedKernel:
 
     def __init__(self, *, count: int, bit_count: int = 32,
                  check_order: bool = False, method: str = "auto", tile=None,
-                 device=None):
+                 block_rows=None, interpret=None, device=None):
+        del block_rows, interpret  # accepted, ignored
         common.validate_bit_count(bit_count)
         sort_ops._resolve_method(method)
         self.count = int(count)
@@ -147,14 +152,15 @@ RadixSortTextureKernel = RadixSortPackedKernel
 class PrefixSumKernel:
     """Exclusive (default) or inclusive prefix sum of the first `count`
     elements of a uint32/int32 buffer, u32 wraparound, the rest untouched
-    (the reference's `PrefixSumKernel`). `avoid_bank_conflicts` is accepted
-    for API compatibility and ignored. `device` is where `compile()` warms
-    up: by default the CUDA card.
+    (the reference's `PrefixSumKernel`). `avoid_bank_conflicts`, `block_rows`
+    and `interpret` are accepted for API compatibility and ignored. `device`
+    is where `compile()` warms up: by default the CUDA card.
     """
 
-    def __init__(self, *, count: int, inclusive: bool = False,
-                 avoid_bank_conflicts: bool = False, mesh=None, device=None):
-        del avoid_bank_conflicts  # accepted, ignored
+    def __init__(self, *, count: int, inclusive: bool = False, block_rows=None,
+                 interpret=None, avoid_bank_conflicts: bool = False, mesh=None,
+                 device=None):
+        del block_rows, interpret, avoid_bank_conflicts  # accepted, ignored
         common.reject_mesh(mesh)
         self.count = int(count)
         if self.count < 0:

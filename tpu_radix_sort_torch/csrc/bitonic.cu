@@ -7,7 +7,9 @@
 // put in ascending order iff (global i & k) == 0. Order is lexicographic,
 // unsigned, over the leading `n_keys` columns; the other columns move along.
 // A pair is swapped iff it is strictly out of order in its direction, which
-// is right for distinct tuples and keeps equal tuples where they are.
+// is right for distinct tuples and keeps equal tuples where they are. The
+// batched sorts' row-local network (ops/bitonic.py row_schedule) ends with a
+// round whose k = 2^31 lies above every index: all of its pairs go up.
 //
 // Two kernels, no rolls, transposes or min/max folds:
 //   bitonic_tile_kernel          a stage list with every j < T, on each tile
@@ -65,15 +67,18 @@ struct StageList {
   unsigned char op[kMaxStages];
 };
 
-// Lexicographic unsigned a < b over the first N_KEYS words.
-// (The first two words as one 64-bit compare.)
+// Lexicographic unsigned a < b over the first N_KEYS words (1..4).
+// (Words 0-1 and 2-3 as 64-bit compares.)
 template <int N_KEYS>
 __device__ __forceinline__ bool lex_lt(const unsigned* a, const unsigned* b) {
   if (N_KEYS == 1) return a[0] < b[0];
   const unsigned long long A = (unsigned long long)a[0] << 32 | a[1];
   const unsigned long long B = (unsigned long long)b[0] << 32 | b[1];
   if (N_KEYS == 2) return A < B;
-  return A < B || (A == B && a[2] < b[2]);
+  if (N_KEYS == 3) return A < B || (A == B && a[2] < b[2]);
+  const unsigned long long C = (unsigned long long)a[2] << 32 | a[3];
+  const unsigned long long D = (unsigned long long)b[2] << 32 | b[3];
+  return A < B || (A == B && C < D);
 }
 
 // Per (N_ARR, N_KEYS): whether the elements' positions ride in registers
@@ -335,9 +340,9 @@ cudaError_t launch_global(unsigned* x, unsigned n, unsigned k, unsigned j,
   return cudaGetLastError();
 }
 
-// Dispatch over (N_ARR, N_KEYS): N_ARR in 1..7, N_KEYS in 1..min(3, N_ARR).
-// Seven columns are the widest 64-bit path: (hi, lo, tie, the full key's
-// hi and lo, an 8-byte value's hi and lo).
+// Dispatch over (N_ARR, N_KEYS): N_ARR in 1..8, N_KEYS in 1..min(4, N_ARR).
+// Eight columns are the widest 64-bit segmented path: (segment, hi, lo, tie,
+// the full key's hi and lo, an 8-byte value's hi and lo).
 #define TRS_DISPATCH(FN, ...)                                                   \
   switch (n_arr * 10 + n_keys) {                                               \
     case 11: return FN<1, 1>(__VA_ARGS__);                                     \
@@ -349,15 +354,23 @@ cudaError_t launch_global(unsigned* x, unsigned n, unsigned k, unsigned j,
     case 41: return FN<4, 1>(__VA_ARGS__);                                     \
     case 42: return FN<4, 2>(__VA_ARGS__);                                     \
     case 43: return FN<4, 3>(__VA_ARGS__);                                     \
+    case 44: return FN<4, 4>(__VA_ARGS__);                                     \
     case 51: return FN<5, 1>(__VA_ARGS__);                                     \
     case 52: return FN<5, 2>(__VA_ARGS__);                                     \
     case 53: return FN<5, 3>(__VA_ARGS__);                                     \
+    case 54: return FN<5, 4>(__VA_ARGS__);                                     \
     case 61: return FN<6, 1>(__VA_ARGS__);                                     \
     case 62: return FN<6, 2>(__VA_ARGS__);                                     \
     case 63: return FN<6, 3>(__VA_ARGS__);                                     \
+    case 64: return FN<6, 4>(__VA_ARGS__);                                     \
     case 71: return FN<7, 1>(__VA_ARGS__);                                     \
     case 72: return FN<7, 2>(__VA_ARGS__);                                     \
     case 73: return FN<7, 3>(__VA_ARGS__);                                     \
+    case 74: return FN<7, 4>(__VA_ARGS__);                                     \
+    case 81: return FN<8, 1>(__VA_ARGS__);                                     \
+    case 82: return FN<8, 2>(__VA_ARGS__);                                     \
+    case 83: return FN<8, 3>(__VA_ARGS__);                                     \
+    case 84: return FN<8, 4>(__VA_ARGS__);                                     \
     default: return cudaErrorInvalidValue;                                     \
   }
 
@@ -365,10 +378,9 @@ cudaError_t launch_global(unsigned* x, unsigned n, unsigned k, unsigned j,
 
 extern "C" {
 
-// x: (n_arr, n) u32, n a power of two < 2^32 and a multiple of `tile`.
-// Stage s is (ks[s], js[s]) with js[s] < tile, run in window windows[s]
-// (planned by ops/bitonic.py tile_plan); at most 128 stages. n is at least
-// one chunk, max(tile, 1024) elements.
+// x: (n_arr, n) u32, n <= 2^31 a multiple of the chunk, max(tile, 1024)
+// elements. Stage s is (ks[s], js[s]) with js[s] < tile, run in window
+// windows[s] (planned by ops/bitonic.py tile_plan); at most 128 stages.
 int trs_bitonic_tile(void* x, long long n, int n_arr, int n_keys, long long tile,
                      const unsigned* ks, const unsigned* js, const unsigned* windows,
                      int n_stages, void* stream) {
@@ -378,10 +390,10 @@ int trs_bitonic_tile(void* x, long long n, int n_arr, int n_keys, long long tile
                n_stages, (cudaStream_t)stream)
 }
 
-// One stage (k, j) over the whole (n_arr, n) array.
+// One stage (k, j) over the whole (n_arr, n) array; n a multiple of 2j.
 int trs_bitonic_global_stage(void* x, long long n, int n_arr, int n_keys,
                              long long k, long long j, void* stream) {
-  if (j < 1 || 2 * j > n) return cudaErrorInvalidValue;
+  if (j < 1 || n % (2 * j) != 0) return cudaErrorInvalidValue;
   TRS_DISPATCH(launch_global, (unsigned*)x, (unsigned)n, (unsigned)k, (unsigned)j,
                (cudaStream_t)stream)
 }

@@ -10,6 +10,12 @@ pairs with i ^ j at stage (k, j) and the pair is ascending iff
 2. each merge round k = 2T..n: one global call per stride j >= T, then one
    tile call for the strides T/2..1 (the merge tail).
 
+The row-local network (:func:`row_schedule`, the batched sorts) sorts every
+aligned run of `row_len` elements on its own: the same rounds up to
+k = row_len/2, whose runs never cross a row, then one final round whose
+k, :data:`ROW_UP`, lies above every index, so that every pair of it is
+ascending.
+
 Kernel K1 (``csrc/bitonic.cu``) executes both call kinds on the card, in
 place; :func:`stages_plain` is its plain PyTorch version, which applies a
 stage list to the whole tensor and is what a CPU tensor runs. A call on a
@@ -33,12 +39,15 @@ from ..utils import dispatch
 from . import common
 
 LANES = 128  # smallest padded length: the JAX package's contract
-MAX_ARRAYS = 7  # csrc/bitonic.cu TRS_DISPATCH; the widest 64-bit key path
-MAX_KEYS = 3
+MAX_ARRAYS = 8  # csrc/bitonic.cu TRS_DISPATCH; the widest 64-bit segmented path
+MAX_KEYS = 4  # (segment, hi, lo, tie)
 MAX_STAGES_PER_CALL = 128  # kMaxStages in csrc/bitonic.cu
 MAX_TILE = 1 << 15  # phase 1 of a 2^15 tile is 120 stages
-MAX_LENGTH = 1 << 31  # indices stay u32 in the kernels
+MAX_LENGTH = common.MAX_LENGTH  # indices stay u32 in the kernels
 CHUNK_MIN = 1024  # the tile kernel's smallest chunk: 32 lanes x 32 registers
+# k of the row-local network's final round: (i & ROW_UP) == 0 for every
+# index i < MAX_LENGTH, so each of its pairs goes up
+ROW_UP = MAX_LENGTH
 
 
 def _block_stages(k_lo, k_hi):
@@ -149,8 +158,14 @@ def _check_cols(x: torch.Tensor, n_keys: int) -> None:
         raise ValueError(f"1..{MAX_ARRAYS} columns supported, got {n_arr}")
     if not 1 <= n_keys <= min(MAX_KEYS, n_arr):
         raise ValueError(f"n_keys must be in 1..{min(MAX_KEYS, n_arr)}, got {n_keys}")
-    if not _is_pow2(n) or n < 2 or n > MAX_LENGTH:
-        raise ValueError(f"length must be a power of two in [2, 2^31], got {n}")
+    if not 2 <= n <= MAX_LENGTH:
+        raise ValueError(f"length must be in [2, 2^31], got {n}")
+
+
+def _check_pow2_cols(x: torch.Tensor, n_keys: int) -> None:
+    _check_cols(x, n_keys)
+    if not _is_pow2(x.shape[1]):
+        raise ValueError(f"length must be a power of two, got {x.shape[1]}")
 
 
 def _device_kind(x: torch.Tensor) -> str:
@@ -161,11 +176,18 @@ def _device_kind(x: torch.Tensor) -> str:
 
 def tile_stages(x: torch.Tensor, stages, *, n_keys: int, tile: int) -> torch.Tensor:
     """K1, tile form: run `stages` (every stride < `tile`) on each tile of
-    `tile` elements of the columns x, in place. Returns x."""
+    `tile` elements of the columns x, in place. Returns x.
+
+    The length is a multiple of the kernel's chunk, max(tile, 1,024)
+    elements, or a multiple of `tile` shorter than one chunk."""
     _check_cols(x, n_keys)
     n_arr, n = x.shape
     if not _is_pow2(tile) or not 2 <= tile <= n:
         raise ValueError(f"tile must be a power of two in [2, {n}], got {tile}")
+    chunk = 1 << chunk_bits(tile)
+    if n % (tile if n < chunk else chunk):
+        raise ValueError(f"length {n} is not a multiple of the chunk {chunk} or of "
+                         f"tile {tile} below it")
     if len(stages) > MAX_STAGES_PER_CALL:
         raise ValueError(f"at most {MAX_STAGES_PER_CALL} stages per call")
     for k, j in stages:
@@ -175,7 +197,6 @@ def tile_stages(x: torch.Tensor, stages, *, n_keys: int, tile: int) -> torch.Ten
         return stages_plain(x, stages, n_keys)
     # an array shorter than the kernel's chunk runs padded to one chunk: the
     # stand-ins pair only with each other (every stride < tile <= n)
-    chunk = 1 << chunk_bits(tile)
     y = x
     if n < chunk:
         y = torch.zeros((n_arr, chunk), dtype=x.dtype, device=x.device)
@@ -195,10 +216,10 @@ def tile_stages(x: torch.Tensor, stages, *, n_keys: int, tile: int) -> torch.Ten
 
 def global_stage(x: torch.Tensor, k: int, j: int, *, n_keys: int) -> torch.Tensor:
     """K1, global form: one stage (k, j) over the whole columns x, in place,
-    straight in device memory. Returns x."""
+    straight in device memory; the length is a multiple of 2j. Returns x."""
     _check_cols(x, n_keys)
     n_arr, n = x.shape
-    if not (_is_pow2(j) and 2 * j <= n and _is_pow2(k) and 2 * j <= k < 1 << 32):
+    if not (_is_pow2(j) and n % (2 * j) == 0 and _is_pow2(k) and 2 * j <= k < 1 << 32):
         raise ValueError(f"stage {(k, j)} does not fit length {n}")
     if _device_kind(x) == "cpu":
         return stages_plain(x, [(k, j)], n_keys)
@@ -209,11 +230,11 @@ def global_stage(x: torch.Tensor, k: int, j: int, *, n_keys: int) -> torch.Tenso
     return x
 
 
-def _merge_round(k, tile):
-    """Kernel calls of one bitonic merge round k: strides k/2 down to 1 —
-    global calls while a pair spans tiles (j >= tile), then one tile call
-    for the rest."""
-    j = k // 2
+def _merge_round(k, tile, j_hi=None):
+    """Kernel calls of one bitonic merge round k: strides `j_hi` (default
+    k/2) down to 1 — global calls while a pair spans tiles (j >= tile), then
+    one tile call for the rest."""
+    j = k // 2 if j_hi is None else j_hi
     calls = []
     while j >= tile:
         calls.append(("global", k, j))
@@ -237,6 +258,27 @@ def merge_schedule(n: int, tile: int):
     """Kernel calls of one bitonic merge of length n: round k = n, where
     every index i < n has (i & n) == 0, so the direction is ascending."""
     return _merge_round(n, tile)
+
+
+def row_schedule(row_len: int, tile: int):
+    """Kernel calls of the row-local network: every aligned run of
+    `row_len` (a power of two) elements sorted ascending on its own.
+
+    Rounds k = 2..row_len/2 are the full sort's (their runs never cross a
+    row), after which each row is bitonic; one final round with k =
+    :data:`ROW_UP` merges it, every pair ascending. With rows no longer
+    than the tile that is one tile call; longer rows run phase 1, the merge
+    rounds up to row_len/2 and the final round from stride row_len/2.
+    """
+    if row_len <= tile:
+        return [("tile", _block_stages(2, row_len // 2)
+                 + [(ROW_UP, j) for j in _halving(row_len // 2)])]
+    calls = [("tile", _block_stages(2, tile))]
+    k = 2 * tile
+    while k <= row_len // 2:
+        calls += _merge_round(k, tile)
+        k *= 2
+    return calls + _merge_round(ROW_UP, tile, j_hi=row_len // 2)
 
 
 def run_schedule(x: torch.Tensor, calls, *, n_keys: int, tile: int) -> torch.Tensor:
@@ -276,16 +318,45 @@ def _padded_cols(arrs):
 
 def sort_padded_cols(x: torch.Tensor, *, n_keys: int, tile=None) -> torch.Tensor:
     """:func:`sort_padded` on one (n_arr, n) int32 tensor, in place."""
-    _check_cols(x, n_keys)
+    _check_pow2_cols(x, n_keys)
     t = resolve_tile(x.shape[1], x.shape[0], tile)
     return run_schedule(x, sort_schedule(x.shape[1], t), n_keys=n_keys, tile=t)
 
 
 def merge_padded_cols(x: torch.Tensor, *, n_keys: int, tile=None) -> torch.Tensor:
     """:func:`merge_padded` on one (n_arr, n) int32 tensor, in place."""
-    _check_cols(x, n_keys)
+    _check_pow2_cols(x, n_keys)
     t = resolve_tile(x.shape[1], x.shape[0], tile)
     return run_schedule(x, merge_schedule(x.shape[1], t), n_keys=n_keys, tile=t)
+
+
+def rows_layout(rows: int, row_len: int, n_arr: int, tile=None):
+    """(tile, padded rows) of the row-local network for `rows` rows of
+    `row_len`: the tile as :func:`resolve_tile` gives it for the whole
+    array, and the row count rounded up so that the length is a multiple
+    of the kernel's chunk (rows shorter than a chunk share one; the extra
+    rows are the caller's sentinel rows, cut off after the sort)."""
+    t = resolve_tile(common.next_pow2(rows * row_len), n_arr, tile)
+    per_chunk = max(1, (1 << chunk_bits(t)) // row_len)
+    return t, common.round_up(rows, per_chunk)
+
+
+def sort_rows_padded_cols(x: torch.Tensor, *, row_len: int, n_keys: int,
+                          tile=None) -> torch.Tensor:
+    """Sort every aligned `row_len` run of the (n_arr, n) int32 columns x
+    on its own, ascending, in place (the batched sorts' network,
+    :func:`row_schedule`; counterpart of the JAX package's
+    ``sort_rows_padded``). Same column contract as :func:`sort_padded`,
+    with sentinel pads in each row; the length is a multiple of `row_len`
+    and of the tile's chunk (:func:`rows_layout`), no power of two needed."""
+    _check_cols(x, n_keys)
+    n_arr, n = x.shape
+    if not _is_pow2(row_len) or n % row_len:
+        raise ValueError(f"row_len must be a power of two dividing {n}, got {row_len}")
+    t = resolve_tile(common.next_pow2(n), n_arr, tile)
+    if n % (1 << chunk_bits(t)):
+        raise ValueError(f"length {n} is not a multiple of the chunk of tile {t}")
+    return run_schedule(x, row_schedule(row_len, t), n_keys=n_keys, tile=t)
 
 
 def sort_padded(arrs, *, stable, tile=None, n_keys=None):

@@ -171,26 +171,28 @@ def _check_view(u, count, bit_count, total_order, descending, device):
 
 
 def disorder_count(u, *, count=None, bit_count=None, total_order=False,
-                   descending=False, device=None, mesh=None,
-                   axis_name="x") -> torch.Tensor:
+                   descending=False, block_rows=None, interpret=None, device=None,
+                   mesh=None, axis_name="x") -> torch.Tensor:
     """Number of adjacent inversions in the first `count` keys (0 == sorted),
     as a 0-d uint32 tensor on the keys' device.
 
     Compares the low `bit_count` bits (default: the key's width) of the bit
     pattern, like the sort; `total_order`/`descending` check under those
     sort options' key view. 64-bit keys compare (hi, lo) pairs (K3).
+    `block_rows` and `interpret` are accepted and ignored.
     """
-    del axis_name
+    del block_rows, interpret, axis_name
     common.reject_mesh(mesh)
     return disorder_count_cols(
         _check_view(u, count, bit_count, total_order, descending, device))
 
 
 def is_sorted(u, *, count=None, bit_count=None, total_order=False,
-              descending=False, device=None, mesh=None, axis_name="x") -> bool:
+              descending=False, block_rows=None, interpret=None, device=None,
+              mesh=None, axis_name="x") -> bool:
     """Fast-gated full order check (:func:`is_sorted_cols`) under the same
     key view options as :func:`disorder_count`."""
-    del axis_name
+    del block_rows, interpret, axis_name
     common.reject_mesh(mesh)
     return is_sorted_cols(
         _check_view(u, count, bit_count, total_order, descending, device))

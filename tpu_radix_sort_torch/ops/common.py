@@ -26,6 +26,8 @@ SENTINEL_U32 = 0xFFFFFFFF
 SIGN_I32 = -(1 << 31)
 # The same for the int64 view of a u64 pattern.
 SIGN_I64 = -(1 << 63)
+# Longest sort: indices and positions stay u32 in the kernels.
+MAX_LENGTH = 1 << 31
 
 KEY_DTYPES_32 = (torch.uint32, torch.float32, torch.int32)
 KEY_DTYPES_16 = (torch.uint16, torch.int16, torch.float16, torch.bfloat16)
@@ -270,6 +272,31 @@ def validate_bit_count_for(dtype, bit_count: int) -> None:
         )
 
 
+def check_args(keys, values, *, bit_count, values_are_ranks, method, name):
+    """Validate the arguments the batched and segmented sorts share, as the
+    JAX package does. Returns (bit_count, the resolved method)."""
+    check_key_dtype(keys.dtype)
+    if bit_count is None:
+        bit_count = native_key_bits(keys.dtype)
+    validate_bit_count_for(keys.dtype, bit_count)
+    if values is not None:
+        if values.shape != keys.shape:
+            raise ValueError("values must match keys shape")
+        validate_value_dtype(values)
+        if values_are_ranks and values.dtype.itemsize != 4:
+            raise ValueError(
+                "values_are_ranks requires a 32-bit value dtype (the rank "
+                "contract is a single u32 column)"
+            )
+    if method not in ("auto", "bitonic", "xla"):
+        raise ValueError(
+            f"{name} supports method in ('auto', 'bitonic', 'xla'); got {method!r}"
+        )
+    if keys.numel() >= MAX_LENGTH:
+        raise ValueError(f"at most 2^31 - 1 keys, got {keys.numel()}")
+    return bit_count, "bitonic" if method == "auto" else method
+
+
 def next_pow2(n: int) -> int:
     return 1 if n <= 1 else 1 << (n - 1).bit_length()
 
@@ -290,3 +317,50 @@ def pad_to(x: torch.Tensor, n: int, fill: int) -> torch.Tensor:
     pad = torch.full((n - x.shape[0],), i32(fill), dtype=x.dtype,
                      device=x.device)
     return torch.cat([x, pad])
+
+
+def own(t: torch.Tensor, buf: torch.Tensor) -> torch.Tensor:
+    """`t`, copied if it is a view into `buf`: a result that would keep an
+    engine's whole padded buffer alive gets storage of its own."""
+    if t.untyped_storage().data_ptr() == buf.untyped_storage().data_ptr():
+        return t.clone()
+    return t
+
+
+def order_cols(keys: torch.Tensor, bit_count: int, *, total_order: bool,
+               descending: bool):
+    """The columns a sort of the flat keys orders by: (full_cols, mk_cols,
+    masked). full_cols: the key's u32 pattern columns, (u,) or (hi, lo)
+    (total order if asked). mk_cols: the compare columns, masked to the low
+    `bit_count` bits and flipped when `descending`; (lo,) alone for a
+    64-bit key with `bit_count` <= 32, whose masked hi is zero. masked:
+    whether `bit_count` is below the key's width; when it is not, the
+    compare columns are the full ones (their low `bit_count` bits flipped
+    when `descending`)."""
+    if is_64bit_key_dtype(keys.dtype):
+        full = (to_total_order_u64_cols(keys) if total_order
+                else to_sortable_u64_cols(keys))
+        masked = bit_count < 64
+        masks = tuple(map(i32, bit_mask_cols(bit_count)))
+    else:
+        full = (to_total_order_u32(keys) if total_order else to_sortable_u32(keys),)
+        masked = bit_count < native_key_bits(keys.dtype)
+        masks = (i32(bit_mask(bit_count)),)
+    mk = tuple(c & m for c, m in zip(full, masks)) if masked else full
+    if descending:
+        mk = tuple(c ^ m for c, m in zip(mk, masks))
+    if len(mk) == 2 and bit_count <= 32:
+        mk = mk[1:]
+    return full, mk, masked
+
+
+def from_order_cols(cols, dtype, *, total_order: bool) -> torch.Tensor:
+    """Keys of `dtype` from their sorted full_cols (inverse of the views
+    of :func:`order_cols`)."""
+    if is_64bit_key_dtype(dtype):
+        if total_order:
+            return from_total_order_u64_cols(*cols, dtype)
+        return from_sortable_u64_cols(*cols, dtype)
+    if total_order:
+        return from_total_order_u32(cols[0], dtype)
+    return from_sortable_u32(cols[0], dtype)

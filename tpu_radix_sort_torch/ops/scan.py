@@ -66,10 +66,14 @@ def scan_kernel(x: torch.Tensor, *, inclusive: bool = False) -> torch.Tensor:
     return out
 
 
-def prefix_sum(items, *, count=None, inclusive=False, device=None, mesh=None):
+def prefix_sum(items, *, count=None, inclusive=False, block_rows=None, interpret=None,
+               device=None, mesh=None, axis_name="x"):
     """Exclusive (default) or inclusive prefix sum of the first `count`
     elements with u32 wraparound; elements at index >= count are returned
-    untouched. uint32 or int32 in, a new tensor of the same dtype out."""
+    untouched. uint32 or int32 in, a new tensor of the same dtype out.
+    `block_rows` and `interpret` (the JAX package's knobs) are accepted and
+    ignored."""
+    del block_rows, interpret, axis_name
     common.reject_mesh(mesh)
     items = interop.as_tensor(items, device)
     if items.dtype not in (torch.uint32, torch.int32):

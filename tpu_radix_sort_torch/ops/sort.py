@@ -181,6 +181,8 @@ def sort(
     values_are_ranks: bool = False,
     method: str = "auto",
     tile: int | None = None,
+    block_rows=None,
+    interpret=None,
     device=None,
     mesh=None,
     axis_name: str = "x",
@@ -201,8 +203,11 @@ def sort(
     iota of an argsort). The network then uses the payload itself as the
     stability tie-break; output is byte-identical. If the promise is broken,
     equal-key runs come out ordered by value bits instead of by position.
+
+    `block_rows` and `interpret`, the JAX package's tiling and Pallas knobs,
+    are accepted and ignored: the output does not depend on the tile.
     """
-    del axis_name
+    del block_rows, interpret, axis_name
     common.reject_mesh(mesh)
     keys = interop.as_tensor(keys, device)
     if keys.dim() != 1:
@@ -249,17 +254,8 @@ def _sort_core(keys, values, *, count, bit_count, check_order, total_order,
     if count <= 1:
         return keys.clone(), None if values is None else values.clone()
 
-    head = keys[:count]
-    u_full = (common.to_total_order_u32(head) if total_order
-              else common.to_sortable_u32(head))
-    # masked against the key's own width: a 16-bit key at bit_count 16
-    # is the whole key and needs no full-key column
-    masked = bit_count < common.native_key_bits(keys.dtype)
-    mask = common.i32(common.bit_mask(bit_count))
-    mkeys = u_full & mask if masked else u_full
-    if descending:
-        # stable descending == stable ascending on the flipped masked key
-        mkeys = mkeys ^ mask
+    (u_full,), (mkeys,), masked = common.order_cols(
+        keys[:count], bit_count, total_order=total_order, descending=descending)
 
     carry_full_key = masked
     stable = carry_full_key or values is not None
@@ -280,7 +276,9 @@ def _sort_core(keys, values, *, count, bit_count, check_order, total_order,
         if carry_full_key:
             u_sorted = ps.pop(0)
         else:
-            u_sorted = mk ^ mask if descending else mk
+            # unmasked: the compare key is the full key, its low
+            # bit_count bits flipped when descending
+            u_sorted = mk ^ common.i32(common.bit_mask(bit_count)) if descending else mk
         return (u_sorted, *ps[: len(vcols)])
 
     if check_order and method != "radix":
@@ -289,11 +287,7 @@ def _sort_core(keys, values, *, count, bit_count, check_order, total_order,
     else:
         result = do_sort()
 
-    u_sorted = result[0]
-    if total_order:
-        out_keys = common.from_total_order_u32(u_sorted, keys.dtype)
-    else:
-        out_keys = common.from_sortable_u32(u_sorted, keys.dtype)
+    out_keys = common.from_order_cols(result[:1], keys.dtype, total_order=total_order)
     return with_suffix(keys, values, count, out_keys, result[1:])
 
 

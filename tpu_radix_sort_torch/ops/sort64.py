@@ -41,20 +41,11 @@ def sort64(keys, values, *, count, bit_count, check_order, total_order,
     if count <= 1:
         return keys.clone(), None if values is None else values.clone()
 
-    head = keys[:count]
-    if total_order:
-        u_hi, u_lo = common.to_total_order_u64_cols(head)
-    else:
-        u_hi, u_lo = common.to_sortable_u64_cols(head)
-    mask_hi, mask_lo = map(common.i32, common.bit_mask_cols(bit_count))
-    mk_hi, mk_lo = u_hi & mask_hi, u_lo & mask_lo
-    if descending:
-        mk_hi, mk_lo = mk_hi ^ mask_hi, mk_lo ^ mask_lo
-    # bit_count <= 32: the masked hi column is all-zero; drop it from the
-    # compare tuple (same order, one column fewer through the engines)
-    key_cols = (mk_lo,) if bit_count <= 32 else (mk_hi, mk_lo)
+    # bit_count <= 32: the masked hi column is all-zero and order_cols
+    # leaves it out of the compare tuple (same order, one column fewer)
+    (u_hi, u_lo), key_cols, carry_full_key = common.order_cols(
+        keys[:count], bit_count, total_order=total_order, descending=descending)
 
-    carry_full_key = bit_count < 64
     stable = carry_full_key or values is not None
     payloads = [u_hi, u_lo] if carry_full_key else []
     rank_payload = None
@@ -73,10 +64,11 @@ def sort64(keys, values, *, count, bit_count, check_order, total_order,
         if carry_full_key:
             s_hi, s_lo = ps.pop(0), ps.pop(0)
         else:
-            # not masked => bit_count == 64 => both columns in the tuple
+            # not masked => bit_count == 64 => both columns in the tuple,
+            # and the descending flip is a complement
             s_hi, s_lo = kc
             if descending:
-                s_hi, s_lo = s_hi ^ mask_hi, s_lo ^ mask_lo
+                s_hi, s_lo = ~s_hi, ~s_lo
         return (s_hi, s_lo, *ps[: len(vcols)])
 
     if check_order and checksort.is_sorted_cols(key_cols):
@@ -84,9 +76,6 @@ def sort64(keys, values, *, count, bit_count, check_order, total_order,
     else:
         result = do_sort()
 
-    if total_order:
-        out_keys = common.from_total_order_u64_cols(result[0], result[1], keys.dtype)
-    else:
-        out_keys = common.from_sortable_u64_cols(result[0], result[1], keys.dtype)
+    out_keys = common.from_order_cols(result[:2], keys.dtype, total_order=total_order)
     return sort_mod.with_suffix(keys, values, count, out_keys, result[2:])
 
