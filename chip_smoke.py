@@ -17,7 +17,13 @@ as a path of its own with its own launch counts, the batched and
 segmented sorts at 2^24 (1,024 rows of 16,384, keys-only and with a
 per-row iota; S = 4,096 Zipf-sized and S = 1,024 equal segments;
 ``argsort_segments``) and the 8-column, 4-key-word 64-bit segmented sort
-at 2^22; checks every result byte for byte, times the sorts, the scan,
+at 2^22; then, as a path of its own with its own launch counts, the
+compare-exchange probes of ``tpu_radix_sort_torch/benchmarks`` (P1
+``explore_ce`` in every variant, both formulations, 16 and 0 stages; P2 and
+P3 ``explore_blocksort`` on one tile and on 256, beside ``torch.sort(dim=1)``
+and ``sort_batched``; P9 ``explore_keys16`` for four lane types at 16 and
+256 stages), each then held against its plain version byte for byte;
+checks every result byte for byte, times the sorts, the scan,
 each kernel, its plain version and ``torch.sort``/``torch.cumsum`` (K1's
 replayed calls each the median of several, its tile calls split into
 phase 1 and the mean merge tail, the row-local network (the batched
@@ -28,9 +34,9 @@ beside a device ``copy_`` of the same columns), and prints:
 
 - the card's name and power limit (``nvidia-smi``) and the build's register,
   shared-memory and spill lines (it fails if the K1 tile kernel spills with
-  2 or 3 columns, either K1 kernel with 4 key words or 8 columns, or the K6
-  reorder kernel at all);
-- one line per check;
+  2 or 3 columns, either K1 kernel with 4 key words or 8 columns, the K6
+  reorder kernel at all, or P1's 3-column register kernels);
+- one line per check, and one JSON line per probe case;
 - one JSON line ``{"kernels": [...]}``;
 - last, ``{"ok": true, "device": {...}}``.
 
@@ -48,10 +54,6 @@ import time
 
 import numpy as np
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
-# No 32-bit integer rate is in the data sheet's table; its float32 rate
-# outside the tensor cores stands for the card's 32-bit ALU peak.
-ALU_OPS_PER_S = 67e12
 HEADLINE_N = 1 << 26
 SPLIT_N = 40_000_000
 OPTION_N = 1 << 22
@@ -71,6 +73,10 @@ REPLACES = {
     "scan_kernel": "tpu_radix_sort/ops/scan.py:71",
     "digit_histogram_kernel": "tpu_radix_sort/ops/radix.py:57",
     "reorder_kernel": "tpu_radix_sort/ops/radix.py:129",
+    "explore_ce_kernel": "benchmarks/explore_ce.py:56",
+    "blocksort_ce_kernel": "benchmarks/explore_blocksort.py:42",
+    "blocksort_stages_kernel": "benchmarks/explore_blocksort.py:74",
+    "keys16_stage_kernel": "benchmarks/explore_keys16.py:144",
 }
 
 
@@ -85,6 +91,8 @@ def check(cond, what):
 
 
 def bound(n_bytes, n_ops):
+    from tpu_radix_sort_torch.benchmarks import ALU_OPS_PER_S, HBM_BYTES_PER_S
+
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / ALU_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -163,6 +171,7 @@ def run(dev) -> None:
 
     import tpu_radix_sort_torch as trt
     from tpu_radix_sort_torch import _build
+    from tpu_radix_sort_torch.benchmarks import explore_blocksort, explore_ce, explore_keys16
     from tpu_radix_sort_torch.models.golden import golden_prefix_sum, golden_sort
     from tpu_radix_sort_torch.ops import bitonic, checksort, common, radix, scan, segmented
     from tpu_radix_sort_torch.runtime.timing import device_time
@@ -189,6 +198,9 @@ def run(dev) -> None:
     global_spills = {m.groups(): b for e, b in spills.items()
                      if (m := re.search(r"bitonic_global_stage_kernelILi(\d)ELi(\d)E", e))}
     reorder_spills = {e: b for e, b in spills.items() if "reorder_kernel" in e}
+    # P1's register kernels: (kind, columns, key words, column type) -> spill bytes
+    ce_regs_spills = {m.groups(): b for e, b in spills.items()
+                      if (m := re.search(r"ce_regs_kernelILi(\d)ELi(\d)ELi(\d)ELb\dE(\w)", e))}
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
@@ -528,8 +540,9 @@ def run(dev) -> None:
     del got
     main_counts = _build.launch_counts()
     print(f"launches main path: {json.dumps(main_counts)}", flush=True)
-    for name, c in main_counts.items():
-        check(c > 0, f"{name} launched on the main path ({c})")
+    for k in _build.SORT_KERNELS:
+        check(main_counts[k.name] > 0, f"{k.name} launched on the main path "
+              f"({main_counts[k.name]})")
     del small
 
     # ---- the batched and segmented sorts: this path's own counts ----------
@@ -973,6 +986,61 @@ def run(dev) -> None:
         del xc, yc
     del x3
 
+    # ---- the probes (P1, P2, P3, P9): this path's own counts ---------------
+    # Each probe module runs as its script does (every case timed, the
+    # batched sorts beside torch.sort); the counts are read, and then each
+    # probe kernel is held against its plain version.
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    probe_rows = (explore_ce.main(dev, ce_all=True) + explore_blocksort.main(dev)
+                  + explore_keys16.main(dev))
+    torch.cuda.synchronize()
+    probe_counts = _build.launch_counts()
+    print(f"launches probe path: {json.dumps(probe_counts)}", flush=True)
+    for k in _build.PROBE_KERNELS:
+        check(probe_counts[k.name] > 0, f"{k.name} launched on the probe path "
+              f"({probe_counts[k.name]})")
+    for _, n_arr, variant, stable in explore_ce.cases(ce_all=True):
+        max_err["explore_ce_kernel"] = max(max_err["explore_ce_kernel"], explore_ce.check(
+            n_arr, variant, stable, device=dev))
+        check(True, f"P1 {variant}, {n_arr} columns, stable={stable} == plain: smem and "
+              f"regs, 16 and 0 stages, the probe's and a tie-heavy input, 2^24")
+    err = explore_blocksort.check(dev)
+    max_err["blocksort_ce_kernel"] = max_err["blocksort_stages_kernel"] = err
+    check(err == 0, "P2 == plain on 1 and 3 tiles; P3 == plain on 1 and 256 tiles, 64 and "
+          "0 stages")
+    max_err["keys16_stage_kernel"] = explore_keys16.check(dev)
+    check(max_err["keys16_stage_kernel"] == 0,
+          "P9 == plain: int32, uint16, int16, bfloat16 at reps 0, 1, 7, 16 and 256")
+    for row in probe_rows:
+        print(json.dumps(row))
+
+    def probe_row(**match):
+        return next(r for r in probe_rows if all(r.get(k) == v for k, v in match.items()))
+
+    # the kernels line's row of each probe: the probe's own case (P1 at
+    # 2 columns in registers, the shape of K1's key + rank stages; P3 at
+    # 256 tiles; P9 int32 at reps 256, where its operations, not its bytes,
+    # bound it); every probe kernel's calls timed queued behind a sleep, so
+    # that one-tile P2 shows the card's time, not its launch; bytes read
+    # and written once, one operation an element a stage (P1: a compare a
+    # pair a key word; P2, P3: min or max, and an add)
+    p1 = probe_row(probe="P1", variant="roll", columns=2, formulation="regs")
+    p2 = probe_row(probe="P2")
+    p3 = probe_row(probe="P3", tiles=explore_blocksort.RATE_TILES)
+    p9 = probe_row(probe="P9", dtype="int32", reps=explore_keys16.RATE_REPS[-1])
+    n_p = explore_ce.N
+    tile = explore_blocksort.ROWS * explore_blocksort.LANES
+    n9 = explore_keys16.TOTAL_ROWS * explore_keys16.LANES
+    for name, r, n_bytes, n_ops in (
+            ("explore_ce_kernel", p1, 2 * 2 * 4 * n_p, explore_ce.STAGES * n_p // 2 * 2),
+            ("blocksort_ce_kernel", p2, 2 * 4 * tile, 2 * tile),
+            ("blocksort_stages_kernel", p3, 2 * 4 * tile * explore_blocksort.RATE_TILES,
+             2 * explore_blocksort.NSTAGE * tile * explore_blocksort.RATE_TILES),
+            ("keys16_stage_kernel", p9, 2 * 4 * n9, explore_keys16.RATE_REPS[-1] * n9)):
+        rows[name] = dict(ms=r["ms"], plain_ms=r["plain_ms"], bytes=n_bytes, ops=n_ops,
+                          library_ms=None)
+
     # checked last, so that a run that fails it still prints its times
     new_k1 = {(str(a), str(k)) for a, k in NEW_K1}
     spilled = {f"{a},{k}": b for (a, k), b in tile_spills.items()
@@ -985,6 +1053,10 @@ def run(dev) -> None:
           f"stores in bytes: {spilled})")
     check(len(reorder_spills) == 1 and not any(reorder_spills.values()),
           f"reorder_kernel spills no registers (ptxas spill stores in bytes: {reorder_spills})")
+    ce3 = {k: b for k, b in ce_regs_spills.items() if k[1] == "3"}
+    check(len(ce_regs_spills) == 10 and len(ce3) == 3 and not any(ce3.values()),
+          f"P1's register kernels with 3 columns spill no registers (ptxas spill stores "
+          f"in bytes by (kind, columns, key words, column type): {ce_regs_spills})")
     kernels = []
     for k in _build.KERNELS:
         r = rows[k.name]
@@ -993,7 +1065,7 @@ def run(dev) -> None:
             "name": k.name, "route": "cuda",
             "source": f"tpu_radix_sort_torch/csrc/{k.source}.cu",
             "replaces": REPLACES[k.name],
-            "launches": main_counts[k.name] + slice_counts[k.name],
+            "launches": main_counts[k.name] + slice_counts[k.name] + probe_counts[k.name],
             "max_abs_err": max_err[k.name],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": r["library_ms"],
@@ -1026,7 +1098,8 @@ def run(dev) -> None:
     print(json.dumps({"keys16": keys16}))
     print(json.dumps({"batched_segmented": slice_rows,
                       "launches_by_path": {"flat sort": main_counts,
-                                           "batched and segmented": slice_counts}}))
+                                           "batched and segmented": slice_counts,
+                                           "probes": probe_counts}}))
     print(json.dumps({"kernels": kernels}))
 
 

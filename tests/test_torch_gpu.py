@@ -1,7 +1,8 @@
 """K1-K6 on the CUDA card against their plain PyTorch versions, and the
 sort engines on the card against golden and `torch.sort`, for 32-, 64- and
 16-bit keys; the row-local K1 schedule, and the batched and segmented
-sorts against golden.
+sorts against golden; the probe kernels (P1, P2, P3, P9 of
+`tpu_radix_sort_torch/benchmarks`) against their plain versions.
 
 Marked `gpu`; each test asks the `cuda` fixture for the card and skips where
 there is none. On a CUDA machine without JAX, run them apart from the rest of
@@ -15,6 +16,7 @@ import torch
 
 import tpu_radix_sort_torch as trt
 from tpu_radix_sort_torch import _build
+from tpu_radix_sort_torch.benchmarks import explore_blocksort, explore_ce, explore_keys16
 from tpu_radix_sort_torch.models.golden import golden_sort
 from tpu_radix_sort_torch.ops import bitonic, checksort, radix, scan
 from tpu_radix_sort_torch.ops import sort as sort_mod
@@ -301,3 +303,51 @@ def test_batched_and_segmented_on_card_match_golden(cuda):
             gk, gv = golden_sort(k64[a:b], v64[a:b], bit_count=40)
             assert np.array_equal(ok[a:b].cpu().numpy(), gk)
             assert np.array_equal(ov[a:b].cpu().numpy(), gv)
+
+
+@pytest.mark.parametrize("variant,n_arr,stable", sorted(explore_ce.VARIANTS))
+def test_explore_ce_kernel_matches_plain(cuda, variant, n_arr, stable):
+    """P1 on two tiles, both formulations, 16 and 0 stages, on the probe's
+    input and on a tie-heavy one."""
+    n = 2 * explore_ce.T
+    rng = np.random.default_rng(n_arr)
+    x = torch.from_numpy(rng.integers(0, 2**32, n, dtype=np.uint64).astype(np.uint32)
+                         .view(np.int32)).to(cuda)
+    before = _build.EXPLORE_CE.launches
+    for cols in (explore_ce.probe_columns(x, n_arr, variant),
+                 explore_ce.tie_columns(n, n_arr, variant, 3, cuda)):
+        want = explore_ce.ce_plain(cols, variant, stable)
+        for form in explore_ce.FORMULATIONS:
+            got = explore_ce.ce_stages(cols, variant, stable, formulation=form)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), form
+            assert torch.equal(explore_ce.ce_stages(cols, variant, stable, formulation=form,
+                                                    n_stages=0), cols), form
+    assert _build.EXPLORE_CE.launches == before + 8
+
+
+@pytest.mark.parametrize("tiles", [1, 3])
+def test_explore_blocksort_kernels_match_plain(cuda, tiles):
+    x = explore_blocksort.random_tiles(tiles, tiles, cuda)
+    before = (_build.BLOCKSORT_CE.launches, _build.BLOCKSORT_STAGES.launches)
+    assert torch.equal(explore_blocksort.ce_tiles(x), explore_blocksort.ce_plain(x))
+    for n_stages in (0, 1, 7, explore_blocksort.NSTAGE):
+        assert torch.equal(explore_blocksort.stage_tiles(x, n_stages),
+                           explore_blocksort.stages_plain(x, n_stages)), n_stages
+    assert (_build.BLOCKSORT_CE.launches, _build.BLOCKSORT_STAGES.launches) == (
+        before[0] + 1, before[1] + 4)
+
+
+@pytest.mark.parametrize("dtype", explore_keys16.DTYPES, ids=str)
+def test_explore_keys16_kernel_matches_plain(cuda, dtype):
+    """P9 on 1,000 rows (a partial last block), NaN, -0.0 and subnormals in
+    the first 64, at reps 0 to 5, 16 and 256."""
+    x = explore_keys16.random_rows(dtype, 1000, 11, cuda)
+    view = torch.int32 if dtype == torch.int32 else torch.int16
+    before = _build.KEYS16_STAGE.launches
+    reps_list = (0, 1, 2, 3, 4, 5, 16, 256)
+    for reps in reps_list:
+        got = explore_keys16.stage_kernel(x, reps)
+        assert got.dtype == dtype
+        assert torch.equal(got.view(view), explore_keys16.stage_plain(x, reps).view(view)), reps
+    assert _build.KEYS16_STAGE.launches == before + len(reps_list)

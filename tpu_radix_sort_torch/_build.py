@@ -140,8 +140,25 @@ DIGIT_HISTOGRAM = Kernel(
 REORDER = Kernel(
     "reorder_kernel", "radix", "trs_reorder", [_P, _P, _I64, _I32, _I32, _I64, _P, _P],
 )
-KERNELS = (BITONIC_TILE, BITONIC_GLOBAL_STAGE, DISORDER, DISORDER_COLS, SCAN,
-           DIGIT_HISTOGRAM, REORDER)
+# The probes of ``tpu_radix_sort_torch/benchmarks`` (P1, P2, P3, P9): no sort
+# launches them.
+EXPLORE_CE = Kernel(
+    "explore_ce_kernel", "explore_ce", "trs_explore_ce", [_P, _P, _I64, _I32, _I32, _I32, _P],
+)
+BLOCKSORT_CE = Kernel(
+    "blocksort_ce_kernel", "explore_blocksort", "trs_blocksort_ce", [_P, _P, _I64, _P],
+)
+BLOCKSORT_STAGES = Kernel(
+    "blocksort_stages_kernel", "explore_blocksort", "trs_blocksort_stages",
+    [_P, _P, _I64, _I32, _P],
+)
+KEYS16_STAGE = Kernel(
+    "keys16_stage_kernel", "explore_keys16", "trs_keys16_stage", [_P, _P, _I64, _I32, _I32, _P],
+)
+SORT_KERNELS = (BITONIC_TILE, BITONIC_GLOBAL_STAGE, DISORDER, DISORDER_COLS, SCAN,
+                DIGIT_HISTOGRAM, REORDER)
+PROBE_KERNELS = (EXPLORE_CE, BLOCKSORT_CE, BLOCKSORT_STAGES, KEYS16_STAGE)
+KERNELS = SORT_KERNELS + PROBE_KERNELS
 
 
 def reset_launches() -> None:
