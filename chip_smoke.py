@@ -21,8 +21,13 @@ at 2^22; then, as a path of its own with its own launch counts, the
 compare-exchange probes of ``tpu_radix_sort_torch/benchmarks`` (P1
 ``explore_ce`` in every variant, both formulations, 16 and 0 stages; P2 and
 P3 ``explore_blocksort`` on one tile and on 256, beside ``torch.sort(dim=1)``
-and ``sort_batched``; P9 ``explore_keys16`` for four lane types at 16 and
-256 stages), each then held against its plain version byte for byte;
+and ``sort_batched``; the scan probes P4-P7 ``explore_scan`` at 2^24: the
+copy floor, K4, the chained scan and the two-pass scan with P4 and P5
+alone, each beside ``copy_``, ``torch.cumsum`` or a sum; ``explore_keys16``:
+the probe's 2^24 u16 sort lines, the two counting sorts with P8's running
+max among them, each byte-checked against ``torch.sort``, P8 alone beside
+``torch.cummax``, and P9 for four lane types at 16 and 256 stages), each
+kernel then held against its plain version byte for byte;
 checks every result byte for byte, times the sorts, the scan,
 each kernel, its plain version and ``torch.sort``/``torch.cumsum`` (K1's
 replayed calls each the median of several, its tile calls split into
@@ -35,7 +40,8 @@ beside a device ``copy_`` of the same columns), and prints:
 - the card's name and power limit (``nvidia-smi``) and the build's register,
   shared-memory and spill lines (it fails if the K1 tile kernel spills with
   2 or 3 columns, either K1 kernel with 4 key words or 8 columns, the K6
-  reorder kernel at all, or P1's 3-column register kernels);
+  reorder kernel at all, P1's 3-column register kernels, or any kernel of
+  ``csrc/explore_scan.cu``);
 - one line per check, and one JSON line per probe case;
 - one JSON line ``{"kernels": [...]}``;
 - last, ``{"ok": true, "device": {...}}``.
@@ -77,6 +83,11 @@ REPLACES = {
     "blocksort_ce_kernel": "benchmarks/explore_blocksort.py:42",
     "blocksort_stages_kernel": "benchmarks/explore_blocksort.py:74",
     "keys16_stage_kernel": "benchmarks/explore_keys16.py:144",
+    "blocksum_kernel": "benchmarks/explore_scan.py:77",
+    "addback_kernel": "benchmarks/explore_scan.py:82",
+    "grid_copy_kernel": "benchmarks/explore_scan.py:30",
+    "chained_scan_kernel": "benchmarks/explore_scan.py:56",
+    "cummax_kernel": "benchmarks/explore_keys16.py:45",
 }
 
 
@@ -171,7 +182,8 @@ def run(dev) -> None:
 
     import tpu_radix_sort_torch as trt
     from tpu_radix_sort_torch import _build
-    from tpu_radix_sort_torch.benchmarks import explore_blocksort, explore_ce, explore_keys16
+    from tpu_radix_sort_torch.benchmarks import (explore_blocksort, explore_ce, explore_keys16,
+                                                 explore_scan)
     from tpu_radix_sort_torch.models.golden import golden_prefix_sum, golden_sort
     from tpu_radix_sort_torch.ops import bitonic, checksort, common, radix, scan, segmented
     from tpu_radix_sort_torch.runtime.timing import device_time
@@ -201,6 +213,8 @@ def run(dev) -> None:
     # P1's register kernels: (kind, columns, key words, column type) -> spill bytes
     ce_regs_spills = {m.groups(): b for e, b in spills.items()
                       if (m := re.search(r"ce_regs_kernelILi(\d)ELi(\d)ELi(\d)ELb\dE(\w)", e))}
+    scan_probe_spills = {e: b for e, b in spills.items()
+                         if re.search(r"(blocksum|addback|grid_copy|chained_scan)_kernel", e)}
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
@@ -986,14 +1000,14 @@ def run(dev) -> None:
         del xc, yc
     del x3
 
-    # ---- the probes (P1, P2, P3, P9): this path's own counts ---------------
+    # ---- the probes (P1-P9): this path's own counts --------------------------
     # Each probe module runs as its script does (every case timed, the
     # batched sorts beside torch.sort); the counts are read, and then each
     # probe kernel is held against its plain version.
     torch.cuda.synchronize()
     _build.reset_launches()
     probe_rows = (explore_ce.main(dev, ce_all=True) + explore_blocksort.main(dev)
-                  + explore_keys16.main(dev))
+                  + explore_keys16.main(dev) + explore_scan.main(dev))
     torch.cuda.synchronize()
     probe_counts = _build.launch_counts()
     print(f"launches probe path: {json.dumps(probe_counts)}", flush=True)
@@ -1009,9 +1023,19 @@ def run(dev) -> None:
     max_err["blocksort_ce_kernel"] = max_err["blocksort_stages_kernel"] = err
     check(err == 0, "P2 == plain on 1 and 3 tiles; P3 == plain on 1 and 256 tiles, 64 and "
           "0 stages")
-    max_err["keys16_stage_kernel"] = explore_keys16.check(dev)
+    max_err["keys16_stage_kernel"] = max_err["cummax_kernel"] = explore_keys16.check(dev)
     check(max_err["keys16_stage_kernel"] == 0,
-          "P9 == plain: int32, uint16, int16, bfloat16 at reps 0, 1, 7, 16 and 256")
+          "P9 == plain: int32, uint16, int16, bfloat16 at reps 0, 1, 7, 16 and 256; P8 == "
+          "plain: 1 to 2^24 elements, full-range, rising, negative and run-start inputs")
+    err = explore_scan.check(dev)
+    for name in ("blocksum_kernel", "addback_kernel", "grid_copy_kernel", "chained_scan_kernel"):
+        max_err[name] = err
+    check(err == 0, "P4, P5, P6, P7 and the two-pass scan == plain: 1 block to 2^24, "
+          "partial last chunks and tiles, full-range u32 and the probe's values")
+    sort_lines = [r for r in probe_rows if r.get("probe") == "P8" and "ok" in r]
+    check(len(sort_lines) == 7 and all(r["ok"] for r in sort_lines),
+          "the probe's 7 u16 sort lines at 2^24 (bitonic, radix, xla, both counting "
+          "sorts, the Zipf pair) == torch.sort")
     for row in probe_rows:
         print(json.dumps(row))
 
@@ -1029,6 +1053,11 @@ def run(dev) -> None:
     p2 = probe_row(probe="P2")
     p3 = probe_row(probe="P3", tiles=explore_blocksort.RATE_TILES)
     p9 = probe_row(probe="P9", dtype="int32", reps=explore_keys16.RATE_REPS[-1])
+    br = explore_scan.TWOPASS_BLOCK_ROWS[0]
+    p4, p5, p6, p7 = (probe_row(probe=p, block_rows=br) for p in ("P4", "P5", "P6", "P7"))
+    p8 = probe_row(probe="P8", case="cummax_1d")
+    n_s = explore_scan.N
+    nb_s = n_s // (br * explore_scan.LANES)
     n_p = explore_ce.N
     tile = explore_blocksort.ROWS * explore_blocksort.LANES
     n9 = explore_keys16.TOTAL_ROWS * explore_keys16.LANES
@@ -1040,6 +1069,17 @@ def run(dev) -> None:
             ("keys16_stage_kernel", p9, 2 * 4 * n9, explore_keys16.RATE_REPS[-1] * n9)):
         rows[name] = dict(ms=r["ms"], plain_ms=r["plain_ms"], bytes=n_bytes, ops=n_ops,
                           library_ms=None)
+    # the scan probes at block_rows 512 and P8 at 2^24, each beside its one
+    # library call (a sum, copy_, torch.cumsum, torch.cummax); one operation
+    # an element
+    for name, r, n_bytes in (
+            ("blocksum_kernel", p4, 4 * n_s + 4 * nb_s),
+            ("addback_kernel", p5, 8 * n_s + 4 * nb_s),
+            ("grid_copy_kernel", p6, 8 * n_s),
+            ("chained_scan_kernel", p7, 8 * n_s),
+            ("cummax_kernel", p8, 8 * explore_keys16.N16)):
+        rows[name] = dict(ms=r["ms"], plain_ms=r["plain_ms"], bytes=n_bytes, ops=r["n"],
+                          library_ms=r["library_ms"])
 
     # checked last, so that a run that fails it still prints its times
     new_k1 = {(str(a), str(k)) for a, k in NEW_K1}
@@ -1057,6 +1097,9 @@ def run(dev) -> None:
     check(len(ce_regs_spills) == 10 and len(ce3) == 3 and not any(ce3.values()),
           f"P1's register kernels with 3 columns spill no registers (ptxas spill stores "
           f"in bytes by (kind, columns, key words, column type): {ce_regs_spills})")
+    check(len(scan_probe_spills) == 5 and not any(scan_probe_spills.values()),
+          f"the kernels of csrc/explore_scan.cu spill no registers (ptxas spill stores in "
+          f"bytes: {scan_probe_spills})")
     kernels = []
     for k in _build.KERNELS:
         r = rows[k.name]

@@ -75,3 +75,54 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
         ek.stage_kernel(torch.zeros((4, 64), dtype=torch.int32))
     with pytest.raises(ValueError):
         ek.stage_kernel(torch.zeros((4, 128), dtype=torch.int32), -1)
+
+
+# ---- P8: cummax_1d and the counting sorts ------------------------------------
+def test_cummax_matches_the_probe_at_block_rows_8():
+    """n = 5,000 (not a multiple of 128) with negatives and zeros, through
+    the probe's `cummax_1d` at block_rows 8 (Pallas interpret mode: conftest
+    sets TRS_INTERPRET=1), and at one block of 512 rows."""
+    rng = np.random.default_rng(9)
+    x_np = rng.integers(-40, 40, 5000).astype(np.int32)
+    x_np[rng.integers(0, 5000, 500)] = 0
+    x_np[:100] = -rng.integers(1, 1000, 100)  # a negative head: the identity 0 shows
+    want = np.asarray(probe.cummax_1d(jnp.asarray(x_np), block_rows=8))
+    got = ek.cummax_1d(torch.from_numpy(x_np), block_rows=8)  # a CPU tensor: the plain version
+    assert got.dtype == torch.int32
+    assert np.array_equal(got.numpy(), want)
+    assert np.array_equal(want, np.maximum(np.maximum.accumulate(x_np), 0))
+    assert np.array_equal(ek.cummax_1d(torch.from_numpy(x_np[:640])).numpy(),
+                          np.asarray(probe.cummax_1d(jnp.asarray(x_np[:640]))))
+
+
+@pytest.mark.parametrize("dist", ["uniform", "zipf"])
+def test_counting_sorts_match_numpy_and_each_other(dist):
+    """2^16 keys: the matmul-histogram counting sort against the scatter one,
+    np.sort and (uniform) the probe's own `counting_sort_u16_matmul`."""
+    rng = np.random.default_rng(4)
+    n = 1 << 16
+    k = (rng.integers(0, 2**16, n) if dist == "uniform"
+         else np.minimum(rng.zipf(1.3, n), 2**16 - 1)).astype(np.uint16)
+    kt = torch.from_numpy(k.view(np.int16)).view(torch.uint16)
+    got = ek.counting_sort_u16_matmul(kt)
+    assert got.dtype == torch.uint16
+    bits = got.view(torch.int16).numpy().view(np.uint16)
+    assert np.array_equal(bits, np.sort(k))
+    assert torch.equal(ek.counting_sort_u16(kt).view(torch.int16), got.view(torch.int16))
+    assert torch.equal(ek.matmul_hist_u16(kt), ek.scatter_hist_u16(kt))
+    if dist == "uniform":
+        want = np.asarray(probe.counting_sort_u16_matmul(jnp.asarray(k)))
+        assert np.array_equal(bits, want)
+
+
+def test_p8_wrappers_refuse_what_they_do_not_take():
+    with pytest.raises(TypeError):
+        ek.cummax_1d(torch.zeros(8, dtype=torch.int64))
+    with pytest.raises(ValueError):
+        ek.cummax_1d(torch.zeros((2, 4), dtype=torch.int32))
+    with pytest.raises(ValueError):
+        ek.cummax_1d(torch.zeros(8, dtype=torch.int32), block_rows=0)
+    with pytest.raises(TypeError):
+        ek.counting_sort_u16(torch.zeros(8, dtype=torch.int32))
+    with pytest.raises(ValueError):
+        ek.matmul_hist_u16(torch.zeros(12, dtype=torch.int16).view(torch.uint16), blk=8)

@@ -1,8 +1,9 @@
 """K1-K6 on the CUDA card against their plain PyTorch versions, and the
 sort engines on the card against golden and `torch.sort`, for 32-, 64- and
 16-bit keys; the row-local K1 schedule, and the batched and segmented
-sorts against golden; the probe kernels (P1, P2, P3, P9 of
-`tpu_radix_sort_torch/benchmarks`) against their plain versions.
+sorts against golden; the probe kernels (P1-P9 of
+`tpu_radix_sort_torch/benchmarks`) against their plain versions, and the
+16-bit counting sorts against `torch.sort`.
 
 Marked `gpu`; each test asks the `cuda` fixture for the card and skips where
 there is none. On a CUDA machine without JAX, run them apart from the rest of
@@ -16,7 +17,8 @@ import torch
 
 import tpu_radix_sort_torch as trt
 from tpu_radix_sort_torch import _build
-from tpu_radix_sort_torch.benchmarks import explore_blocksort, explore_ce, explore_keys16
+from tpu_radix_sort_torch.benchmarks import (explore_blocksort, explore_ce, explore_keys16,
+                                             explore_scan)
 from tpu_radix_sort_torch.models.golden import golden_sort
 from tpu_radix_sort_torch.ops import bitonic, checksort, radix, scan
 from tpu_radix_sort_torch.ops import sort as sort_mod
@@ -351,3 +353,50 @@ def test_explore_keys16_kernel_matches_plain(cuda, dtype):
         assert got.dtype == dtype
         assert torch.equal(got.view(view), explore_keys16.stage_plain(x, reps).view(view)), reps
     assert _build.KEYS16_STAGE.launches == before + len(reps_list)
+
+
+@pytest.mark.parametrize("block_rows,blocks", [(1, 1), (8, 1), (8, 37), (24, 37), (512, 256)])
+def test_explore_scan_kernels_match_plain(cuda, block_rows, blocks):
+    """P4-P7 on one block; on 8 x 37 and 24 x 37 rows, whose last chunk of
+    P4 and P6 and last tile of P5 and P7 are partial; and on 2^24, where 512
+    tiles chain; full-range u32, so that every sum wraps."""
+    es = explore_scan
+    x = es.random_rows(block_rows * blocks, blocks, cuda)
+    offs = es.block_offsets(es.blocksum_plain(x, block_rows))
+    kernels = (_build.BLOCKSUM, _build.ADDBACK, _build.GRID_COPY, _build.CHAINED_SCAN)
+    before = [k.launches for k in kernels]
+    assert torch.equal(es.blocksum_kernel(x, block_rows), es.blocksum_plain(x, block_rows))
+    assert torch.equal(es.addback_kernel(offs, x, block_rows),
+                       es.addback_plain(offs, x, block_rows))
+    want = es.streaming_scan_plain(x, block_rows)
+    assert torch.equal(es.twopass_scan(x, block_rows), want)
+    assert torch.equal(es.grid_copy(x, block_rows), x)
+    assert torch.equal(es.streaming_scan(x, block_rows), want)
+    assert [k.launches - b for k, b in zip(kernels, before)] == [2, 2, 1, 1]
+
+
+@pytest.mark.parametrize("n", [1, 5000, explore_keys16.CHAIN_TILE,
+                               explore_keys16.CHAIN_TILE + 1, 1 << 24])
+def test_cummax_kernel_matches_plain(cuda, n):
+    """P8 on full-range int32, a rising walk from below zero, all-negative
+    input and a counting sort's run starts; one tile, a partial last tile,
+    and 512 chained tiles."""
+    inputs = explore_keys16.cummax_inputs(n, n, cuda)
+    before = _build.CUMMAX.launches
+    for x in inputs:
+        assert torch.equal(explore_keys16.cummax_1d(x), explore_keys16.cummax_plain(x))
+    assert _build.CUMMAX.launches == before + len(inputs)
+
+
+@pytest.mark.parametrize("dist", ["uniform", "zipf"])
+def test_counting_sorts_on_card_match_torch_sort(cuda, dist):
+    rng = np.random.default_rng(5)
+    n = 1 << 20
+    k = (rng.integers(0, 2**16, n) if dist == "uniform"
+         else np.minimum(rng.zipf(1.3, n), 2**16 - 1)).astype(np.uint16)
+    kt = torch.from_numpy(k.view(np.int16)).to(cuda).view(torch.uint16)
+    want = torch.from_numpy(np.sort(k).view(np.int16)).to(cuda)
+    for sort in (explore_keys16.counting_sort_u16, explore_keys16.counting_sort_u16_matmul):
+        got = sort(kt)
+        assert got.dtype == torch.uint16
+        assert torch.equal(got.view(torch.int16), want)

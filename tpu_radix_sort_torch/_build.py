@@ -140,7 +140,7 @@ DIGIT_HISTOGRAM = Kernel(
 REORDER = Kernel(
     "reorder_kernel", "radix", "trs_reorder", [_P, _P, _I64, _I32, _I32, _I64, _P, _P],
 )
-# The probes of ``tpu_radix_sort_torch/benchmarks`` (P1, P2, P3, P9): no sort
+# The probes of ``tpu_radix_sort_torch/benchmarks`` (P1-P9): no sort
 # launches them.
 EXPLORE_CE = Kernel(
     "explore_ce_kernel", "explore_ce", "trs_explore_ce", [_P, _P, _I64, _I32, _I32, _I32, _P],
@@ -155,9 +155,23 @@ BLOCKSORT_STAGES = Kernel(
 KEYS16_STAGE = Kernel(
     "keys16_stage_kernel", "explore_keys16", "trs_keys16_stage", [_P, _P, _I64, _I32, _I32, _P],
 )
+# The scan probes P4-P7 and the running max P8 (``explore_scan``,
+# ``explore_keys16``).
+BLOCKSUM = Kernel(
+    "blocksum_kernel", "explore_scan", "trs_blocksum", [_P, _I64, _I64, _P, _P],
+)
+ADDBACK = Kernel(
+    "addback_kernel", "explore_scan", "trs_addback", [_P, _P, _I64, _I64, _P, _P],
+)
+GRID_COPY = Kernel("grid_copy_kernel", "explore_scan", "trs_grid_copy", [_P, _P, _I64, _P])
+CHAINED_SCAN = Kernel(
+    "chained_scan_kernel", "explore_scan", "trs_chained_scan", [_P, _I64, _P, _P, _P],
+)
+CUMMAX = Kernel("cummax_kernel", "explore_scan", "trs_cummax", [_P, _I64, _P, _P, _P])
 SORT_KERNELS = (BITONIC_TILE, BITONIC_GLOBAL_STAGE, DISORDER, DISORDER_COLS, SCAN,
                 DIGIT_HISTOGRAM, REORDER)
-PROBE_KERNELS = (EXPLORE_CE, BLOCKSORT_CE, BLOCKSORT_STAGES, KEYS16_STAGE)
+PROBE_KERNELS = (EXPLORE_CE, BLOCKSORT_CE, BLOCKSORT_STAGES, KEYS16_STAGE, BLOCKSUM, ADDBACK,
+                 GRID_COPY, CHAINED_SCAN, CUMMAX)
 KERNELS = SORT_KERNELS + PROBE_KERNELS
 
 

@@ -5,8 +5,12 @@
 - ``explore_blocksort``: P2, the primitive check, and P3, the resident
   stage rate (``benchmarks/explore_blocksort.py:60,88``), beside
   ``torch.sort(dim=1)`` and ``sort_batched``;
-- ``explore_keys16``: P9, the min/max stage rate per lane type
-  (``benchmarks/explore_keys16.py:163``).
+- ``explore_scan``: P4-P7, block sums, the block-local add-back, a copy
+  through the grid and a one-pass scan with its carry chained from tile to
+  tile (``benchmarks/explore_scan.py:92,107,131,145``), beside K4;
+- ``explore_keys16``: P8, the running max that emits a 16-bit keys-only
+  counting sort (``benchmarks/explore_keys16.py:80``), with the probe's
+  sort lines; P9, the min/max stage rate per lane type (:163).
 
 Each runs on the card as ``python -m tpu_radix_sort_torch.benchmarks.<name>``.
 """

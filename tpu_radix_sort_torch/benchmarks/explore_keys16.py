@@ -1,27 +1,45 @@
-"""Probe P9 on the card: the min/max stage rate per lane type. Does a 16-bit
-lane, two to a register, run at twice the int32 element rate?
+"""Probes P8 and P9 on the card: the 16-bit keys-only counting sort with its
+running-max emission, and the min/max stage rate per lane type.
 
-Counterpart of ``benchmarks/explore_keys16.py:163`` ``stage_rate`` (kernel
-body ``_stage_kernel`` :144): over rows of 128 elements (32,768 rows),
-`reps` times, s = 1 + (r & 3), p[:, l] = x[:, (l - s) mod 128] and
-x <- min(x, p) at even lanes l, max(x, p) at odd ones; for int32, uint16,
-int16 and bfloat16. :func:`stage_plain` computes it in PyTorch;
-:func:`stage_kernel` launches ``csrc/explore_keys16.cu`` on a CUDA tensor
-(one row a thread in registers; 16-bit rows as packed pairs).
+Counterpart of ``benchmarks/explore_keys16.py``.
+
+**P8** (``cummax_1d`` :80, kernel body ``_cummax_kernel`` :45): the
+inclusive running max of int32 with identity 0 (the probe's pads, shifts
+and carry bring in 0), so the result is max(0, cummax(x)) for any input.
+:func:`cummax_plain` computes it in PyTorch; :func:`cummax_1d` launches the
+chained scan of ``csrc/explore_scan.cu`` with max on a CUDA tensor (its
+`block_rows` sets only the probe's zero padding, which changes no result,
+so the card ignores it). It is the emission step of the keys-only counting
+sorts (:90-140): a 65,536-bin histogram, by ``index_add_``
+(:func:`counting_sort_u16`) or by one-hot float32 products per block of
+2^19 keys (:func:`matmul_hist_u16`, ``torch.matmul``, as the JAX package
+left the product to XLA: exact, counts stay below 2^24), its exclusive
+scan, a scatter of each run's value + 1 to its start (empty runs to a
+dropped slot n), :func:`cummax_1d`, minus 1. The JAX probe kept the
+scatter histogram behind a flag (a TPU compiler dead end); the port runs
+it.
+
+**P9** (``stage_rate`` :163, kernel body ``_stage_kernel`` :144): over rows
+of 128 elements (32,768 rows), `reps` times, s = 1 + (r & 3), p[:, l] =
+x[:, (l - s) mod 128] and x <- min(x, p) at even lanes l, max(x, p) at odd
+ones; for int32, uint16, int16 and bfloat16. :func:`stage_plain` computes
+it in PyTorch; :func:`stage_kernel` launches ``csrc/explore_keys16.cu`` on
+a CUDA tensor (one row a thread in registers; 16-bit rows as packed pairs).
 
 bfloat16 matches what the JAX package computes on the CPU: subnormals
 count as zero of their sign, -0 < +0, and a NaN operand gives 0x7FC0 or
 0xFFC0 (the minimum is 0xFFC0 only if every NaN operand is negative, the
 maximum 0x7FC0 only if every one is positive). uint16 patterns ride in
 int32 in the plain version, as the port's u32 patterns do (torch has no
-uint16 ``minimum`` on the CPU).
-
-The probe script's other parts (the ``cummax_1d`` kernel, P8, and the
-counting sorts built on it) are not ported here; they come with the scan
-probes in the next slice (ROADMAP). Where the JAX probe feeds zeros, this
-one feeds seeded random rows, checked against the plain version, at the
+uint16 ``minimum`` on the CPU). Where the JAX probe feeds zeros, this one
+feeds seeded random rows, checked against the plain version, at the
 probe's reps = 16 and at reps = 256, where the ALU, not the bytes, sets
 the time.
+
+:func:`main` runs the probe's sort lines at 2^24 u16 keys (the bitonic
+engine, ``method='radix'``, ``method='xla'``, both counting sorts, and the
+Zipf(1.3) pair), each byte-checked against ``torch.sort``, times
+:func:`cummax_1d` alone beside ``torch.cummax``, then the P9 rates.
 
 Run on the card: ``python -m tpu_radix_sort_torch.benchmarks.explore_keys16``.
 """
@@ -34,12 +52,17 @@ from .. import _build
 from ..runtime.timing import device_time
 from ..utils import interop
 from . import ALU_OPS_PER_S, HBM_BYTES_PER_S
+from .explore_scan import CHAIN_TILE, launch_chained
 
 TOTAL_ROWS = 1 << 15
 LANES = 128
 REPS = 16
 RATE_REPS = (REPS, 256)
 DTYPES = (torch.int32, torch.uint16, torch.int16, torch.bfloat16)
+N16 = 1 << 24  # keys of the probe's sort lines
+CUMMAX_BLOCK_ROWS = 512
+HIST_BLOCK = 1 << 19  # keys a one-hot product of matmul_hist_u16
+BINS = 1 << 16
 
 
 def _check(x: torch.Tensor, reps: int) -> None:
@@ -156,10 +179,161 @@ def stage_rate(dtype, reps: int = REPS, *, device="cuda", seed: int = 0) -> dict
     return row
 
 
+# ---- P8: the running max and the counting sorts built on it -----------------
+def _check_cummax(x: torch.Tensor, block_rows: int) -> None:
+    if not isinstance(x, torch.Tensor) or x.dtype != torch.int32:
+        raise TypeError("cummax_1d takes an int32 tensor")
+    if x.dim() != 1 or not x.is_contiguous():
+        raise ValueError("cummax_1d takes one contiguous 1-D tensor")
+    if not isinstance(block_rows, int) or block_rows < 1:
+        raise ValueError("block_rows must be a positive int")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {x.device}")
+
+
+def cummax_plain(x: torch.Tensor, block_rows: int = CUMMAX_BLOCK_ROWS) -> torch.Tensor:
+    """Plain version of P8: max(0, the inclusive running max of x)."""
+    _check_cummax(x, block_rows)
+    if x.numel() == 0:
+        return x.clone()
+    return torch.cummax(x, 0).values.clamp_min(0)
+
+
+def cummax_1d(x: torch.Tensor, block_rows: int = CUMMAX_BLOCK_ROWS) -> torch.Tensor:
+    """P8: max(0, the inclusive running max of the int32 x), a new tensor.
+    A CPU tensor runs :func:`cummax_plain`."""
+    _check_cummax(x, block_rows)
+    if x.device.type == "cpu":
+        return cummax_plain(x, block_rows)
+    return launch_chained(_build.CUMMAX, x)
+
+
+def _keys_i32(k16: torch.Tensor) -> torch.Tensor:
+    """uint16 keys -> their values in int32."""
+    if not isinstance(k16, torch.Tensor) or k16.dtype != torch.uint16:
+        raise TypeError("the counting sorts take uint16 keys")
+    if k16.dim() != 1 or not k16.is_contiguous():
+        raise ValueError("the counting sorts take one contiguous 1-D tensor")
+    if k16.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {k16.device}")
+    return k16.view(torch.int16).to(torch.int32) & 0xFFFF
+
+
+def scatter_hist_u16(k16: torch.Tensor) -> torch.Tensor:
+    """The 65,536-bin int32 histogram of the keys, by ``index_add_``."""
+    k = _keys_i32(k16)
+    return torch.zeros(BINS, dtype=torch.int32, device=k.device).index_add_(
+        0, k, torch.ones_like(k))
+
+
+def matmul_hist_u16(k16: torch.Tensor, blk: int = HIST_BLOCK) -> torch.Tensor:
+    """The histogram as hist[hi8, lo8], summed over blocks of `blk` keys of
+    one-hot float32 products (exact: counts stay below 2^24)."""
+    k = _keys_i32(k16)
+    n = k.numel()
+    blk = min(blk, n)
+    if blk == 0 or n % blk:
+        raise ValueError(f"matmul_hist_u16 takes a positive multiple of {blk} keys")
+    ids = torch.arange(256, dtype=torch.int32, device=k.device)
+    acc = torch.zeros((256, 256), dtype=torch.int32, device=k.device)
+    for kb in k.view(n // blk, blk):
+        hi = ((kb >> 8)[:, None] == ids).to(torch.float32)
+        lo = ((kb & 255)[:, None] == ids).to(torch.float32)
+        acc += torch.matmul(hi.T, lo).to(torch.int32)
+    return acc.reshape(BINS)
+
+
+def run_starts(hist: torch.Tensor, n: int) -> torch.Tensor:
+    """(value + 1) at the start of each non-empty run of the sorted keys, 0
+    elsewhere, (n,) int32: empty runs go to slot n, which is dropped."""
+    csum = torch.cumsum(hist, 0, dtype=torch.int64) - hist
+    pos = torch.where(hist > 0, csum, n)
+    vals = torch.arange(1, BINS + 1, dtype=torch.int32, device=hist.device)
+    starts = torch.zeros(n + 1, dtype=torch.int32, device=hist.device)
+    return starts.scatter_reduce_(0, pos, vals, "amax")[:n]
+
+
+def _emit(hist: torch.Tensor, n: int) -> torch.Tensor:
+    return (cummax_1d(run_starts(hist, n)) - 1).to(torch.int16).view(torch.uint16)
+
+
+def counting_sort_u16(k16: torch.Tensor) -> torch.Tensor:
+    """Keys-only counting sort of uint16 keys, the histogram by
+    ``index_add_``; the sorted keys as uint16."""
+    return _emit(scatter_hist_u16(k16), k16.numel())
+
+
+def counting_sort_u16_matmul(k16: torch.Tensor) -> torch.Tensor:
+    """Keys-only counting sort of uint16 keys, the histogram by one-hot
+    products; the sorted keys as uint16."""
+    return _emit(matmul_hist_u16(k16), k16.numel())
+
+
+def cummax_inputs(n: int, seed: int, device) -> list[torch.Tensor]:
+    """Full-range int32; a rising walk from below zero (each tile adds to
+    the carry it gets); all negative; the run starts of a counting sort."""
+    rng = np.random.default_rng(seed)
+    walk = np.arange(n, dtype=np.int64) * 61 - (1 << 22) + rng.integers(-5000, 5000, n)
+    keys = torch.from_numpy(rng.integers(0, 2**16, n).astype(np.uint16).view(np.int16))
+    hist = scatter_hist_u16(keys.view(torch.uint16))
+    arrays = [rng.integers(-2**31, 2**31, n), np.clip(walk, -2**31, 2**31 - 1),
+              rng.integers(-2**31, 0, n)]
+    return ([torch.from_numpy(a.astype(np.int32)).to(device) for a in arrays]
+            + [run_starts(hist, n).to(device)])
+
+
+def sort_lines(device="cuda", seed=0) -> list[dict]:
+    """The probe's sort lines at 2^24 u16 keys (:192-226), each byte-checked
+    against ``torch.sort`` of the keys widened to int32 (raises on a
+    difference); then :func:`cummax_1d` alone on the run starts of the
+    uniform keys, beside ``torch.cummax``."""
+    from ..ops.sort import sort
+
+    dev = interop.resolve_device(device)
+    rng = np.random.default_rng(seed)
+    uniform = rng.integers(0, 2**16, N16).astype(np.uint16)
+    zipf = np.minimum(rng.zipf(1.3, N16), 2**16 - 1).astype(np.uint16)
+    cases = (("bitonic widened (default)", "uniform", sort),
+             ("radix bit_count=16 (8 passes)", "uniform", lambda a: sort(a, method="radix")),
+             ("torch.sort (method='xla')", "uniform", lambda a: sort(a, method="xla")),
+             ("counting (scatter hist + cummax)", "uniform", counting_sort_u16),
+             ("counting (matmul hist + cummax)", "uniform", counting_sort_u16_matmul),
+             ("Zipf bitonic widened", "zipf", sort),
+             ("Zipf counting (matmul hist)", "zipf", counting_sort_u16_matmul))
+    keys, want, library_ms = {}, {}, {}
+    for name, k in (("uniform", uniform), ("zipf", zipf)):
+        keys[name] = torch.from_numpy(k.view(np.int16)).to(dev).view(torch.uint16)
+        wide = keys[name].view(torch.int16).to(torch.int32) & 0xFFFF
+        want[name] = torch.sort(wide).values.to(torch.int16)
+        library_ms[name] = device_time(torch.sort, wide, warmup=1, iters=5) * 1e3
+    rows = []
+    for name, dist, fn in cases:
+        if not torch.equal(fn(keys[dist]).view(torch.int16), want[dist]):
+            raise AssertionError(f"P8 sort line {name!r} differs from torch.sort")
+        ms = device_time(fn, keys[dist], warmup=1, iters=3) * 1e3
+        rows.append({"probe": "P8", "case": name, "keys": dist, "n": N16, "ms": ms,
+                     "library_ms": library_ms[dist], "library": "torch.sort of the int32 keys",
+                     "bound_ms": 2 * 2 * N16 / HBM_BYTES_PER_S * 1e3, "ok": True})
+        print(f"{N16 >> 20}M u16 {name:36s} {ms:9.3f} ms  {N16 / ms / 1e6:7.3f} Gkeys/s  "
+              f"torch.sort {library_ms[dist]:.3f} ms  ok", flush=True)
+    starts = run_starts(scatter_hist_u16(keys["uniform"]), N16)
+    ms = device_time(cummax_1d, starts, queued=True) * 1e3
+    rows.append({"probe": "P8", "case": "cummax_1d", "block_rows": CUMMAX_BLOCK_ROWS, "n": N16,
+                 "ms": ms, "plain_ms": device_time(cummax_plain, starts, warmup=1, iters=3) * 1e3,
+                 "library_ms": device_time(lambda x: torch.cummax(x, 0), starts,
+                                           queued=True) * 1e3,
+                 "library": "torch.cummax", "bound_ms": 2 * 4 * N16 / HBM_BYTES_PER_S * 1e3})
+    print(f"cummax_1d {N16 >> 20}M {ms:.4f} ms  torch.cummax {rows[-1]['library_ms']:.4f} ms",
+          flush=True)
+    return rows
+
+
 def check(device="cuda", seed=0) -> int:
-    """Hold the kernel against :func:`stage_plain`, every dtype at reps 0,
-    1, 16, 256 and an odd count, byte for byte; raise on a difference.
-    Returns the largest |difference| (0)."""
+    """Hold P9 against :func:`stage_plain`, every dtype at reps 0, 1, 16,
+    256 and an odd count, and P8 against :func:`cummax_plain` on
+    :func:`cummax_inputs` of one element to 2^24 (a partial last tile, one
+    whole tile and one more element among them), byte for byte; raise on a
+    difference. Returns the largest |difference| (0)."""
     dev = interop.resolve_device(device)
     for dtype in DTYPES:
         x = random_rows(dtype, TOTAL_ROWS, seed, dev)
@@ -167,13 +341,19 @@ def check(device="cuda", seed=0) -> int:
         for reps in (0, 1, 7, *RATE_REPS):
             if not torch.equal(stage_kernel(x, reps).view(view), stage_plain(x, reps).view(view)):
                 raise AssertionError(f"P9 {dtype} differs from its plain version at reps {reps}")
+    for n in (1, 5000, CHAIN_TILE, CHAIN_TILE + 1, 100_003, N16):
+        for x in cummax_inputs(n, seed + n, dev):
+            if not torch.equal(cummax_1d(x), cummax_plain(x)):
+                raise AssertionError(f"P8 differs from its plain version at n = {n}")
     return 0
 
 
 def main(device="cuda") -> list[dict]:
-    """Time every dtype at each of RATE_REPS; a row each."""
+    """The sort lines and cummax_1d (:func:`sort_lines`), then every P9
+    dtype at each of RATE_REPS; a row each."""
     dev = interop.resolve_device(device)
-    return [stage_rate(dt, reps, device=dev) for dt in DTYPES for reps in RATE_REPS]
+    return sort_lines(dev) + [stage_rate(dt, reps, device=dev) for dt in DTYPES
+                              for reps in RATE_REPS]
 
 
 if __name__ == "__main__":
