@@ -27,7 +27,9 @@ alone, each beside ``copy_``, ``torch.cumsum`` or a sum; ``explore_keys16``:
 the probe's 2^24 u16 sort lines, the two counting sorts with P8's running
 max among them, each byte-checked against ``torch.sort``, P8 alone beside
 ``torch.cummax``, and P9 for four lane types at 16 and 256 stages), each
-kernel then held against its plain version byte for byte;
+kernel then held against its plain version byte for byte (the chained
+scans P7 and P8 also at the edges of their clusters, and the copy P6 at
+the edges of its chunks, each case 50 times);
 checks every result byte for byte, times the sorts, the scan,
 each kernel, its plain version and ``torch.sort``/``torch.cumsum`` (K1's
 replayed calls each the median of several, its tile calls split into
@@ -43,6 +45,9 @@ beside a device ``copy_`` of the same columns), and prints:
   reorder kernel at all, P1's 3-column register kernels, or any kernel of
   ``csrc/explore_scan.cu``);
 - one line per check, and one JSON line per probe case;
+- one JSON line ``{"scan_probe_design": {...}}``: the chained scans'
+  cluster size and the clusters resident at once, P7's and P8's links at
+  2^24 and their time a link, and P6 over ``copy_``;
 - one JSON line ``{"kernels": [...]}``;
 - last, ``{"ok": true, "device": {...}}``.
 
@@ -213,8 +218,11 @@ def run(dev) -> None:
     # P1's register kernels: (kind, columns, key words, column type) -> spill bytes
     ce_regs_spills = {m.groups(): b for e, b in spills.items()
                       if (m := re.search(r"ce_regs_kernelILi(\d)ELi(\d)ELi(\d)ELb\dE(\w)", e))}
-    scan_probe_spills = {e: b for e, b in spills.items()
-                         if re.search(r"(blocksum|addback|grid_copy|chained_scan)_kernel", e)}
+    # the kernels of csrc/explore_scan.cu: P6, P4, P5, and the chained scan
+    # with sum (P7) and with max (P8)
+    scan_probe_spills = {m.group(0): b for e, b in spills.items()
+                         if (m := re.search(r"(grid_copy|blocksum|addback)_kernel"
+                                            r"|chained_scan_kernelINS_6(AddU32|MaxI32)", e))}
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
@@ -1026,18 +1034,26 @@ def run(dev) -> None:
     max_err["keys16_stage_kernel"] = max_err["cummax_kernel"] = explore_keys16.check(dev)
     check(max_err["keys16_stage_kernel"] == 0,
           "P9 == plain: int32, uint16, int16, bfloat16 at reps 0, 1, 7, 16 and 256; P8 == "
-          "plain: 1 to 2^24 elements, full-range, rising, negative and run-start inputs")
+          "plain: 1 to 2^24 elements, full-range, rising, negative and run-start inputs, and "
+          f"a rising walk at the chain's edges, each launched {explore_scan.REPEATS} times")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     err = explore_scan.check(dev)
     for name in ("blocksum_kernel", "addback_kernel", "grid_copy_kernel", "chained_scan_kernel"):
         max_err[name] = err
     check(err == 0, "P4, P5, P6, P7 and the two-pass scan == plain: 1 block to 2^24, "
-          "partial last chunks and tiles, full-range u32 and the probe's values")
+          "partial last chunks and tiles, full-range u32 and the probe's values; P7 at "
+          f"{explore_scan.CHAIN_EDGE_TILES} tiles (whole tiles, n % 4 = 3, a view one element "
+          f"in) and P6 at n = {explore_scan.copy_edge_sizes(sms)}, each launched "
+          f"{explore_scan.REPEATS} times")
     sort_lines = [r for r in probe_rows if r.get("probe") == "P8" and "ok" in r]
     check(len(sort_lines) == 7 and all(r["ok"] for r in sort_lines),
           "the probe's 7 u16 sort lines at 2^24 (bitonic, radix, xla, both counting "
           "sorts, the Zipf pair) == torch.sort")
     for row in probe_rows:
         print(json.dumps(row))
+    cluster, active = explore_scan.chain_clusters()
+    check(cluster == explore_scan.CHAIN_CLUSTER and active >= 1,
+          f"the chained scans run as clusters of {cluster} blocks, {active} resident at once")
 
     def probe_row(**match):
         return next(r for r in probe_rows if all(r.get(k) == v for k, v in match.items()))
@@ -1056,6 +1072,13 @@ def run(dev) -> None:
     br = explore_scan.TWOPASS_BLOCK_ROWS[0]
     p4, p5, p6, p7 = (probe_row(probe=p, block_rows=br) for p in ("P4", "P5", "P6", "P7"))
     p8 = probe_row(probe="P8", case="cummax_1d")
+    links = explore_scan.chain_layout(explore_scan.N)[1]
+    print(json.dumps({"scan_probe_design": {
+        "n": explore_scan.N, "chain_cluster": cluster, "max_active_clusters": active,
+        "chain_links": links, "p7_ms": p7["ms"], "p7_us_per_link": p7["ms"] * 1e3 / links,
+        "p8_ms": p8["ms"], "p8_us_per_link": p8["ms"] * 1e3 / links,
+        "p6_ms": p6["ms"], "copy_ms": p6["library_ms"],
+        "p6_over_copy": p6["ms"] / p6["library_ms"]}}))
     n_s = explore_scan.N
     nb_s = n_s // (br * explore_scan.LANES)
     n_p = explore_ce.N
@@ -1097,9 +1120,12 @@ def run(dev) -> None:
     check(len(ce_regs_spills) == 10 and len(ce3) == 3 and not any(ce3.values()),
           f"P1's register kernels with 3 columns spill no registers (ptxas spill stores "
           f"in bytes by (kind, columns, key words, column type): {ce_regs_spills})")
-    check(len(scan_probe_spills) == 5 and not any(scan_probe_spills.values()),
-          f"the kernels of csrc/explore_scan.cu spill no registers (ptxas spill stores in "
-          f"bytes: {scan_probe_spills})")
+    check(sorted(scan_probe_spills) == [
+              "addback_kernel", "blocksum_kernel", "chained_scan_kernelINS_6AddU32",
+              "chained_scan_kernelINS_6MaxI32", "grid_copy_kernel"]
+          and not any(scan_probe_spills.values()),
+          f"the five kernels of csrc/explore_scan.cu spill no registers (ptxas spill stores "
+          f"in bytes: {scan_probe_spills})")
     kernels = []
     for k in _build.KERNELS:
         r = rows[k.name]

@@ -2,7 +2,7 @@
 """Time the port's redesigned kernels and the sorts around them, for one
 checkout of the repository, on one CUDA card.
 
-    python3 kernel_times.py [--root DIR] [--label NAME]
+    python3 kernel_times.py [--root DIR] [--label NAME] [--scan-probes-only]
 
 imports ``tpu_radix_sort_torch`` from DIR (default: beside this script),
 builds its kernels there, and prints one JSON line: the card's name and power
@@ -13,11 +13,19 @@ columns and its bound (one read and one write of them at 3.35 TB/s); the K1
 tile kernel's phase-1 call and mean merge-tail call, replayed call by call
 on the 2^26 u32 key+rank (2 columns) and u64 key+rank (3 columns) networks;
 the 2^26 key+rank sorts through both engines beside ``torch.sort`` and the
-bfloat16 key+rank radix sort; and a tile call with no stages (the
-device-memory round trip alone). Every time is the mean of CUDA-event
-windows after a warm-up. Running it on two checkouts in
-turns on one machine (A, B, B, A) compares them on one card. It uses only
-entry points that every slice of the port has had since the radix engine.
+bfloat16 key+rank radix sort; a tile call with no stages (the
+device-memory round trip alone); and the scan probes on the probe's values
+(``benchmarks/explore_scan.py``, ``explore_keys16.py``): the copy P6
+(``explore_scan.grid_copy``) beside ``copy_`` at 2^24, the chained scan P7
+(``explore_scan.streaming_scan``) beside ``torch.cumsum`` at 2^22, 2^23
+and 2^24 with the chain's links (its clusters, or its tiles where the
+checkout chains tile by tile) and the time a link, the running max P8
+(``explore_keys16.cummax_1d``) beside ``torch.cummax`` and the scatter
+counting sort at 2^24 u16 keys, each probe call queued behind a sleep.
+Every time is the mean of CUDA-event windows after a warm-up. Running it
+on two checkouts in turns on one machine (A, B, B, A) compares them on one
+card. It uses only entry points that every slice of the port has had since
+the scan probes.
 """
 from __future__ import annotations
 
@@ -36,6 +44,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=str(Path(__file__).resolve().parent))
     ap.add_argument("--label", default=None)
+    ap.add_argument("--scan-probes-only", action="store_true",
+                    help="build and time only the scan probes P6, P7 and P8")
     args = ap.parse_args()
     import torch
 
@@ -49,10 +59,15 @@ def main() -> int:
     from tpu_radix_sort_torch.runtime.timing import device_time
 
     assert Path(trt.__file__).resolve().is_relative_to(Path(args.root).resolve())
-    _build.build()
+    _build.build(["explore_scan", "explore_keys16"] if args.scan_probes_only else None)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
+    if args.scan_probes_only:
+        print(json.dumps({"kernel_times": {"label": args.label or args.root, "card": smi,
+                                           "scan_probes": scan_probes(torch, device_time)}}),
+              flush=True)
+        return 0
 
     def ms(fn, *a, iters=20):
         return device_time(fn, *a, warmup=2, iters=iters) * 1e3
@@ -142,8 +157,48 @@ def main() -> int:
                                 iters=10),
         "bf16_radix_ms": ms(lambda k, v: trt.sort(k, v, method="radix"), b16, iu, iters=10),
     }
+    out["scan_probes"] = scan_probes(torch, device_time)
     print(json.dumps({"kernel_times": out}), flush=True)
     return 0
+
+
+def scan_probes(torch, device_time) -> dict:
+    """P6, P7 and P8 of the checkout on the card, each beside its one
+    library call."""
+    from tpu_radix_sort_torch.benchmarks import explore_keys16 as ek
+    from tpu_radix_sort_torch.benchmarks import explore_scan as es
+    from tpu_radix_sort_torch.ops import common
+
+    def ms(fn, *a, iters=20):
+        return device_time(fn, *a, warmup=2, iters=iters, queued=True) * 1e3
+
+    def links(n):  # one a cluster where the checkout chains clusters, else one a tile
+        layout = getattr(es, "chain_layout", None)
+        return layout(n)[1] if layout else common.cdiv(n, es.CHAIN_TILE)
+
+    br = es.CHAIN_BLOCK_ROWS[0]
+    out = {"chain_cluster": getattr(es, "CHAIN_CLUSTER", 1)}
+    if hasattr(es, "chain_clusters"):
+        out["max_active_clusters"] = es.chain_clusters()[1]
+    for p in (22, 23, 24):
+        x2d = es.probe_input("cuda", 0, 1 << p)
+        t = ms(es.streaming_scan, x2d, br)
+        out[f"p7_2p{p}"] = {"ms": t, "links": links(1 << p), "us_per_link": t * 1e3 / links(1 << p),
+                            "cumsum_ms": ms(lambda x: torch.cumsum(x.view(-1), 0,
+                                                                   dtype=torch.int32), x2d)}
+    y = torch.empty_like(x2d)
+    out["p6_2p24"] = {"ms": ms(es.grid_copy, x2d, br), "copy_ms": ms(lambda x: y.copy_(x), x2d),
+                      "bound_ms": 8 * x2d.numel() / HBM_BYTES_PER_S * 1e3}
+    del x2d, y
+    rng = torch.Generator(device="cuda")
+    rng.manual_seed(SEED)
+    keys = torch.randint(0, 2**16, (ek.N16,), dtype=torch.int32, device="cuda",
+                         generator=rng).to(torch.int16).view(torch.uint16)
+    starts = ek.run_starts(ek.scatter_hist_u16(keys), ek.N16)
+    out["p8_2p24"] = {"ms": ms(ek.cummax_1d, starts),
+                      "cummax_ms": ms(lambda x: torch.cummax(x, 0), starts, iters=3),
+                      "counting_sort_ms": ms(ek.counting_sort_u16, keys, iters=10)}
+    return out
 
 
 if __name__ == "__main__":

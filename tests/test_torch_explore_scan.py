@@ -10,6 +10,7 @@ Inputs: full-range u32 patterns, so that the sums wrap, and the probe's
 values 0..7."""
 import functools
 import importlib.util
+import re
 from pathlib import Path
 
 import jax
@@ -140,3 +141,41 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
         es.addback_kernel(offs.to(torch.int64), good, 8)
     with pytest.raises(ValueError):
         es.addback_kernel(offs, good, 5)
+    with pytest.raises(ValueError):
+        es.chain_layout(0)
+
+
+# ---- the chained scan's layout on the card (no kernel runs) -----------------
+T = es.CHAIN_TILE  # 32,768
+
+
+@pytest.mark.parametrize("n,layout", [
+    (1, (1, 1, 8, 2)), (4, (1, 1, 8, 2)), (T - 1, (1, 1, 8, 2)), (T, (1, 1, 8, 2)),
+    (T + 1, (2, 1, 8, 2)), (8 * T, (8, 1, 8, 2)), (8 * T + 1, (9, 2, 16, 3)),
+    (9 * T, (9, 2, 16, 3)), (1 << 24, (512, 64, 512, 65)), ((1 << 24) + 3, (513, 65, 520, 66)),
+])
+def test_chain_layout(n, layout):
+    """(tiles, clusters, grid blocks, scratch words), by hand: the grid is
+    whole clusters of 8, the scratch a flag a cluster and the ticket."""
+    assert es.chain_layout(n) == layout
+    tiles, clusters, blocks, words = layout
+    assert blocks % es.CHAIN_CLUSTER == 0 and blocks >= tiles > blocks - es.CHAIN_CLUSTER
+    assert words == clusters + 1
+
+
+def _cuda_constants():
+    """The `constexpr unsigned` constants of csrc/explore_scan.cu, evaluated
+    in order (C's integer arithmetic on the names defined before)."""
+    src = (Path(es.__file__).resolve().parents[1] / "csrc" / "explore_scan.cu").read_text()
+    env = {}
+    for name, expr in re.findall(r"constexpr unsigned (\w+) = ([^;]+);", src):
+        expr = re.sub(r"\b(0x[0-9a-fA-F]+|\d+)u\b", r"\1", expr).replace("/", "//")
+        env[name] = eval(expr, {"__builtins__": {}}, dict(env))
+    return env
+
+
+def test_python_and_cuda_constants_agree():
+    c = _cuda_constants()
+    assert c["kTile"] == es.CHAIN_TILE
+    assert c["kCluster"] == es.CHAIN_CLUSTER
+    assert c["kCopyChunkBytes"] == 4 * es.COPY_CHUNK

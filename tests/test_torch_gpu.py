@@ -355,11 +355,17 @@ def test_explore_keys16_kernel_matches_plain(cuda, dtype):
     assert _build.KEYS16_STAGE.launches == before + len(reps_list)
 
 
-@pytest.mark.parametrize("block_rows,blocks", [(1, 1), (8, 1), (8, 37), (24, 37), (512, 256)])
+_TILE_ROWS = explore_scan.CHAIN_TILE // explore_scan.LANES
+
+
+@pytest.mark.parametrize("block_rows,blocks", [(1, 1), (8, 1), (8, 37), (24, 37), (512, 256)]
+                         + [(_TILE_ROWS, t) for t in explore_scan.CHAIN_EDGE_TILES])
 def test_explore_scan_kernels_match_plain(cuda, block_rows, blocks):
     """P4-P7 on one block; on 8 x 37 and 24 x 37 rows, whose last chunk of
-    P4 and P6 and last tile of P5 and P7 are partial; and on 2^24, where 512
-    tiles chain; full-range u32, so that every sum wraps."""
+    P4 and last tile of P5 and P7 are partial; on 2^24, where 64 clusters
+    of 8 tiles chain; and on 1, 7, 8, 9, 15, 16, 17, 512 and 513 whole
+    tiles (within and across the chain's clusters, a last cluster with
+    surplus blocks); full-range u32, so that every sum wraps."""
     es = explore_scan
     x = es.random_rows(block_rows * blocks, blocks, cuda)
     offs = es.block_offsets(es.blocksum_plain(x, block_rows))
@@ -375,17 +381,64 @@ def test_explore_scan_kernels_match_plain(cuda, block_rows, blocks):
     assert [k.launches - b for k, b in zip(kernels, before)] == [2, 2, 1, 1]
 
 
+@pytest.mark.parametrize("tiles", explore_scan.CHAIN_EDGE_TILES)
+def test_chained_scan_edges_repeated(cuda, tiles):
+    """P7 at the chain's edges (`explore_scan.chain_edge_inputs`: whole
+    tiles; a partial last tile with n % 4 = 3; a view one element in, the
+    scalar path), full-range u32, each launched 50 times on one stream and
+    compared every time, so that a race in the chain or the cluster's
+    hand-off shows."""
+    es = explore_scan
+    for label, x in es.chain_edge_inputs(tiles, es.full_range_u32, cuda):
+        before = _build.CHAINED_SCAN.launches
+        es.check_repeated(lambda a: es.launch_chained(_build.CHAINED_SCAN, a), x,
+                          scan.scan_plain(x), f"P7 at {tiles} tiles ({label})")
+        assert _build.CHAINED_SCAN.launches == before + es.REPEATS
+
+
+def test_grid_copy_edges_repeated(cuda):
+    """P6 on one vector, one chunk and a vector, a share of one chunk and a
+    vector for every SM, a chunk count that is no multiple of the SM count,
+    and 2^24 + 4; each launched 50 times and compared every time."""
+    es = explore_scan
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for n in es.copy_edge_sizes(sms):
+        x = torch.from_numpy(es.full_range_u32(n, n).view(np.int32)).to(cuda)
+        before = _build.GRID_COPY.launches
+        es.check_repeated(es.copy_flat, x, x, f"P6 at n = {n}")
+        assert _build.GRID_COPY.launches == before + es.REPEATS
+
+
+def test_chained_scan_runs_in_resident_clusters(cuda):
+    cluster, active = explore_scan.chain_clusters()
+    assert cluster == explore_scan.CHAIN_CLUSTER
+    assert active >= 1
+
+
 @pytest.mark.parametrize("n", [1, 5000, explore_keys16.CHAIN_TILE,
-                               explore_keys16.CHAIN_TILE + 1, 1 << 24])
+                               explore_keys16.CHAIN_TILE + 1, 1 << 24]
+                         + [t * explore_keys16.CHAIN_TILE for t in explore_scan.CHAIN_EDGE_TILES
+                            if t not in (1, 512)])
 def test_cummax_kernel_matches_plain(cuda, n):
     """P8 on full-range int32, a rising walk from below zero, all-negative
     input and a counting sort's run starts; one tile, a partial last tile,
-    and 512 chained tiles."""
+    7 to 17 tiles (within and across the clusters of 8), 64 chained
+    clusters and 513 tiles."""
     inputs = explore_keys16.cummax_inputs(n, n, cuda)
     before = _build.CUMMAX.launches
     for x in inputs:
         assert torch.equal(explore_keys16.cummax_1d(x), explore_keys16.cummax_plain(x))
     assert _build.CUMMAX.launches == before + len(inputs)
+
+
+@pytest.mark.parametrize("tiles", explore_scan.CHAIN_EDGE_TILES)
+def test_cummax_edges_repeated(cuda, tiles):
+    """P8 at the chain's edges, as P7 above, on a rising walk (each tile's
+    max starts from its carry), each launched 50 times."""
+    for label, x in explore_scan.chain_edge_inputs(tiles, explore_keys16.rising_walk, cuda):
+        explore_scan.check_repeated(explore_keys16.cummax_1d, x,
+                                    explore_keys16.cummax_plain(x),
+                                    f"P8 at {tiles} tiles ({label})")
 
 
 @pytest.mark.parametrize("dist", ["uniform", "zipf"])

@@ -52,7 +52,8 @@ from .. import _build
 from ..runtime.timing import device_time
 from ..utils import interop
 from . import ALU_OPS_PER_S, HBM_BYTES_PER_S
-from .explore_scan import CHAIN_TILE, launch_chained
+from .explore_scan import (CHAIN_EDGE_TILES, CHAIN_TILE, chain_edge_inputs,
+                           check_repeated, launch_chained)
 
 TOTAL_ROWS = 1 << 15
 LANES = 128
@@ -270,16 +271,24 @@ def counting_sort_u16_matmul(k16: torch.Tensor) -> torch.Tensor:
 
 
 def cummax_inputs(n: int, seed: int, device) -> list[torch.Tensor]:
-    """Full-range int32; a rising walk from below zero (each tile adds to
-    the carry it gets); all negative; the run starts of a counting sort."""
+    """Full-range int32; a :func:`rising_walk` from below zero (each tile
+    adds to the carry it gets); all negative; the run starts of a counting
+    sort."""
     rng = np.random.default_rng(seed)
-    walk = np.arange(n, dtype=np.int64) * 61 - (1 << 22) + rng.integers(-5000, 5000, n)
     keys = torch.from_numpy(rng.integers(0, 2**16, n).astype(np.uint16).view(np.int16))
     hist = scatter_hist_u16(keys.view(torch.uint16))
-    arrays = [rng.integers(-2**31, 2**31, n), np.clip(walk, -2**31, 2**31 - 1),
-              rng.integers(-2**31, 0, n)]
-    return ([torch.from_numpy(a.astype(np.int32)).to(device) for a in arrays]
-            + [run_starts(hist, n).to(device)])
+    arrays = [rng.integers(-2**31, 2**31, n).astype(np.int32), rising_walk(n, seed),
+              rng.integers(-2**31, 0, n).astype(np.int32)]
+    return [torch.from_numpy(a).to(device) for a in arrays] + [run_starts(hist, n).to(device)]
+
+
+def rising_walk(n: int, seed: int) -> np.ndarray:
+    """int32 rising by 61 an element from -2^20, with noise of +-5,000: past
+    the first half tile, each tile's running max starts from the carry it
+    is given."""
+    rng = np.random.default_rng(seed)
+    walk = np.arange(n, dtype=np.int64) * 61 - (1 << 20) + rng.integers(-5000, 5000, n)
+    return np.clip(walk, -2**31, 2**31 - 1).astype(np.int32)
 
 
 def sort_lines(device="cuda", seed=0) -> list[dict]:
@@ -332,8 +341,10 @@ def check(device="cuda", seed=0) -> int:
     """Hold P9 against :func:`stage_plain`, every dtype at reps 0, 1, 16,
     256 and an odd count, and P8 against :func:`cummax_plain` on
     :func:`cummax_inputs` of one element to 2^24 (a partial last tile, one
-    whole tile and one more element among them), byte for byte; raise on a
-    difference. Returns the largest |difference| (0)."""
+    whole tile and one more element among them) and on the chain's edges
+    (``explore_scan.chain_edge_inputs`` at each of ``CHAIN_EDGE_TILES``, a
+    :func:`rising_walk`, each launched ``REPEATS`` times), byte for byte;
+    raise on a difference. Returns the largest |difference| (0)."""
     dev = interop.resolve_device(device)
     for dtype in DTYPES:
         x = random_rows(dtype, TOTAL_ROWS, seed, dev)
@@ -345,6 +356,9 @@ def check(device="cuda", seed=0) -> int:
         for x in cummax_inputs(n, seed + n, dev):
             if not torch.equal(cummax_1d(x), cummax_plain(x)):
                 raise AssertionError(f"P8 differs from its plain version at n = {n}")
+    for tiles in CHAIN_EDGE_TILES:
+        for label, x in chain_edge_inputs(tiles, rising_walk, dev):
+            check_repeated(cummax_1d, x, cummax_plain(x), f"P8 at {tiles} tiles ({label})")
     return 0
 
 

@@ -22,9 +22,13 @@ elements and must divide the rows (the JAX grid would drop the rest).
 
 Each has a plain PyTorch version (``*_plain``), which a CPU tensor runs; a
 CUDA tensor launches ``csrc/explore_scan.cu``. On the card the copy and the
-chained scan work in chunks and tiles of their own (16,384 and 32,768
-elements), so their `block_rows` only has to divide the rows; P4 splits a
-block into chunks of 16,384 elements, P5 gives each block one CUDA block.
+chained scan work in units of their own, so their `block_rows` only has to
+divide the rows: the copy is one block an SM, each moving every 132nd
+chunk of at most 8 KB through TMA bulk transfers (:func:`copy_flat`); the
+chained scan scans tiles of ``CHAIN_TILE`` elements in clusters of
+``CHAIN_CLUSTER`` blocks, one link of the chain a cluster
+(:func:`chain_layout`). P4 splits a block into chunks of 16,384 elements,
+P5 gives each block one CUDA block.
 
 :func:`main` times the probe's cases at 2^24 (P6 at block_rows 512 and
 1024, K4 as the "current streaming scan", P7 at 512 and 1024, two-pass at
@@ -34,6 +38,8 @@ one PyTorch call that computes the same function and its bound.
 Run on the card: ``python -m tpu_radix_sort_torch.benchmarks.explore_scan``.
 """
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
@@ -50,6 +56,13 @@ COPY_BLOCK_ROWS = (512, 1024)
 CHAIN_BLOCK_ROWS = (512, 1024)
 TWOPASS_BLOCK_ROWS = (512, 1024, 2048)
 CHAIN_TILE = 32768  # elements a tile of the chained scans (kTile in csrc/explore_scan.cu)
+CHAIN_CLUSTER = 8  # blocks (tiles) a cluster, one link of the chain (kCluster there)
+COPY_CHUNK = 2048  # elements of the copy's largest chunk (kCopyChunkBytes / 4 there)
+# The chain's edges that the card's checks cover: tile counts around one
+# and two clusters, and 2^24 and one tile more; each case launched REPEATS
+# times, so that a race in the chain or the cluster's hand-off shows.
+CHAIN_EDGE_TILES = (1, 7, 8, 9, 15, 16, 17, 512, 513)
+REPEATS = 50
 
 
 def _check(x2d: torch.Tensor, block_rows: int) -> None:
@@ -150,8 +163,16 @@ def grid_copy(x2d: torch.Tensor, block_rows: int) -> torch.Tensor:
     _check(x2d, block_rows)
     if x2d.device.type == "cpu":
         return grid_copy_plain(x2d, block_rows)
-    out = torch.empty_like(x2d)
-    _build.GRID_COPY(x2d.data_ptr(), out.data_ptr(), x2d.numel(), _stream(x2d, out))
+    return copy_flat(x2d)
+
+
+def copy_flat(x: torch.Tensor) -> torch.Tensor:
+    """Launch P6 on the contiguous int32 CUDA tensor `x` of any shape, whose
+    elements are a positive multiple of 4; a new tensor."""
+    if x.dtype != torch.int32 or not x.is_contiguous() or x.numel() < 4 or x.numel() % 4:
+        raise ValueError("the copy takes a contiguous int32 tensor of 4k elements, k >= 1")
+    out = torch.empty_like(x)
+    _build.GRID_COPY(x.data_ptr(), out.data_ptr(), x.numel(), _stream(x, out))
     return out
 
 
@@ -170,18 +191,78 @@ def streaming_scan(x2d: torch.Tensor, block_rows: int) -> torch.Tensor:
     return launch_chained(_build.CHAINED_SCAN, x2d)
 
 
+def chain_layout(n: int) -> tuple[int, int, int, int]:
+    """The chained scan's layout for n >= 1 elements: (tiles of
+    ``CHAIN_TILE``, clusters of ``CHAIN_CLUSTER`` tiles, the grid's blocks
+    (whole clusters: the last one's surplus blocks hold no elements), the
+    scratch's 64-bit words (a flag a cluster, and the ticket))."""
+    if n < 1:
+        raise ValueError("the chained scan takes n >= 1 elements")
+    tiles = common.cdiv(n, CHAIN_TILE)
+    clusters = common.cdiv(tiles, CHAIN_CLUSTER)
+    return tiles, clusters, clusters * CHAIN_CLUSTER, clusters + 1
+
+
 def launch_chained(kernel: _build.Kernel, x: torch.Tensor) -> torch.Tensor:
     """Launch a chained scan of ``csrc/explore_scan.cu`` (P7, or P8's max)
     over the contiguous CUDA tensor `x`; a new tensor."""
     out = torch.empty_like(x)
     n = x.numel()
     if n:
-        # the tiles' flags and the ticket, zeroed on the stream
-        scratch = torch.zeros(common.cdiv(n, CHAIN_TILE) + 1, dtype=torch.int64,
-                              device=x.device)
+        # the clusters' flags and the ticket, zeroed on the stream
+        scratch = torch.zeros(chain_layout(n)[3], dtype=torch.int64, device=x.device)
         kernel(x.data_ptr(), n, out.data_ptr(), scratch.data_ptr(),
                torch.cuda.current_stream(x.device).cuda_stream)
     return out
+
+
+def chain_clusters() -> tuple[int, int]:
+    """(blocks a cluster of the chained scan, the clusters that the current
+    CUDA device holds at once), from ``cudaOccupancyMaxActiveClusters``."""
+    lib = _build.library("explore_scan")
+    cluster, active = ctypes.c_int(), ctypes.c_int()
+    err = lib.trs_chain_clusters(ctypes.byref(cluster), ctypes.byref(active))
+    if err:
+        raise RuntimeError(f"cudaOccupancyMaxActiveClusters failed: CUDA error {err} "
+                           f"({lib.trs_error_string(err).decode()})")
+    return cluster.value, active.value
+
+
+def chain_edge_inputs(tiles: int, values, device) -> list[tuple[str, torch.Tensor]]:
+    """The chain's edge cases at `tiles` tiles, 1-D int32 from
+    ``values(n, seed)`` (a numpy array): whole tiles (the 16-byte path); a
+    partial last tile whose n is not a multiple of 4; and a view one
+    element into its storage (the scalar path throughout)."""
+    n = tiles * CHAIN_TILE
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a).view(np.int32)).to(device)
+
+    return [("whole tiles", dev(values(n, tiles))),
+            ("partial, n % 4 = 3", dev(values(n - 5, tiles + 1))),
+            ("a view one element in", dev(values(n + 1, tiles + 2))[1:])]
+
+
+def full_range_u32(n: int, seed: int) -> np.ndarray:
+    """`n` full-range u32 draws from `seed`."""
+    return np.random.default_rng(seed).integers(0, 2**32, n, dtype=np.uint64).astype(np.uint32)
+
+
+def check_repeated(fn, x: torch.Tensor, want: torch.Tensor, what: str) -> None:
+    """Run fn(x) ``REPEATS`` times on one stream; raise unless every result
+    equals `want` byte for byte."""
+    for r in range(REPEATS):
+        if not torch.equal(fn(x), want):
+            raise AssertionError(f"{what} differs from its plain version at launch {r + 1}")
+
+
+def copy_edge_sizes(sms: int) -> tuple[int, ...]:
+    """P6's edges on a card of `sms` SMs (one block each): one vector; a
+    chunk and a vector; a chunk and a vector for every SM; 30 chunks an SM
+    and 7 more, so that each block's chunks run past the ring of stages and
+    the last chunk is short; 2^24 + 4."""
+    return (4, COPY_CHUNK + 4, sms * (COPY_CHUNK + 4), (30 * sms + 7) * COPY_CHUNK + 4,
+            N + 4)
 
 
 def probe_input(device, seed: int = 0, n: int = N) -> torch.Tensor:
@@ -193,8 +274,7 @@ def probe_input(device, seed: int = 0, n: int = N) -> torch.Tensor:
 
 def random_rows(rows: int, seed: int, device) -> torch.Tensor:
     """Full-range u32 patterns, so that every sum wraps."""
-    rng = np.random.default_rng(seed)
-    x = rng.integers(0, 2**32, (rows, LANES), dtype=np.uint64).astype(np.uint32)
+    x = full_range_u32(rows * LANES, seed).reshape(rows, LANES)
     return torch.from_numpy(x.view(np.int32)).to(device)
 
 
@@ -245,8 +325,11 @@ def main(device="cuda", seed=0) -> list[dict]:
 def check(device="cuda", seed=0) -> int:
     """Hold every kernel against its plain version, byte for byte, on
     full-range u32 and on the probe's values: one block, two, many, block
-    sizes whose last CUDA chunk or tile is partial, and 2^24 (512 chained
-    tiles); raise on a difference. Returns the largest |difference| (0)."""
+    sizes whose last CUDA chunk or tile is partial, and 2^24 (64 chained
+    clusters); then the chain's edges (:func:`chain_edge_inputs` at each of
+    ``CHAIN_EDGE_TILES``, full-range u32) and the copy's
+    (:func:`copy_edge_sizes`), each launched ``REPEATS`` times; raise on a
+    difference. Returns the largest |difference| (0)."""
     dev = interop.resolve_device(device)
     cases = [(1, 1), (8, 1), (16, 2), (8, 37), (24, 37), (512, 3), (512, N // LANES // 512)]
     for i, (br, nb) in enumerate(cases):
@@ -262,6 +345,13 @@ def check(device="cuda", seed=0) -> int:
                 if not torch.equal(got, want):
                     raise AssertionError(f"{name} differs from its plain version at "
                                          f"{nb} blocks of {br} rows")
+    for tiles in CHAIN_EDGE_TILES:
+        for label, x in chain_edge_inputs(tiles, full_range_u32, dev):
+            check_repeated(lambda a: launch_chained(_build.CHAINED_SCAN, a), x,
+                           scan.scan_plain(x), f"P7 at {tiles} tiles ({label})")
+    for n in copy_edge_sizes(torch.cuda.get_device_properties(dev).multi_processor_count):
+        x = torch.from_numpy(full_range_u32(n, n).view(np.int32)).to(dev)
+        check_repeated(copy_flat, x, x, f"P6 at n = {n}")
     return 0
 
 

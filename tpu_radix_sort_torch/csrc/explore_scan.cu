@@ -5,8 +5,11 @@
 // in an int32 tensor; u32 sums wrap mod 2^32.
 //
 //   P6 `_copy_kernel` (:30, launched :131): a copy, the floor of the others.
-//     Chunks of 16,384 elements, one block each, 16 loads of 16 bytes a
-//     thread in flight before the stores.
+//     A persistent grid, one block an SM, each taking every 132nd chunk of
+//     at most 8 KB: one thread moves them with TMA bulk transfers (global
+//     -> shared memory -> global) through a ring of kCopyStages stages, so
+//     no register holds data and no wave of blocks leaves SMs idle at its
+//     tail.
 //   P4 `_blocksum_kernel` (:77, launched :92): the sum of each probe block
 //     of block_elems = block_rows * 128 elements. A probe block is split into
 //     chunks of 16,384 elements, one CUDA block each, whose sums meet by
@@ -20,53 +23,124 @@
 //     the add-back, so block_rows 1024 and 2048 run 128 and 64 blocks at
 //     2^24, fewer than the 132 SMs).
 //   P7 `_scan_kernel_and` (:56, launched :145): the exclusive scan of the
-//     whole array in one pass, its carry chained from tile to tile. A block
-//     takes its tile id from a ticket (atomicAdd), scans its tile of kTile
-//     elements in registers, waits for its predecessor's inclusive prefix
-//     (an acquire load of a 64-bit flag word: value in the high half), and
-//     publishes its own (a release store) before it writes its tile. No
-//     look-back, unlike K4 (csrc/scan.cu): the chain passes through every
-//     tile one after another, so its time is bounded by the number of
-//     tiles times the latency of one link, not by the bytes.
+//     whole array in one pass, its carry chained from tile to tile. Blocks
+//     run in thread-block clusters of kCluster; a cluster takes its place
+//     in the chain from a ticket (atomicAdd), each block scans its tile of
+//     kTile elements in registers, and the tile totals meet in the leading
+//     block's shared memory (distributed shared memory, cluster barriers).
+//     Only the leader links through L2: it waits for the previous
+//     cluster's inclusive prefix (a relaxed load of a 64-bit flag word:
+//     value in the high half) and publishes its own (a relaxed store),
+//     then hands each block its prefix. No look-back, unlike K4
+//     (csrc/scan.cu): the chain passes through every cluster one after
+//     another, so its time is bounded by the number of clusters times the
+//     latency of one link, not only by the bytes.
 //   P8 `_cummax_kernel` (benchmarks/explore_keys16.py:45, `cummax_1d` :80):
 //     the inclusive running max of int32 with identity 0, so the result is
 //     max(0, cummax(x)): the same chained body as P7, instantiated with max.
 //
 // Bound on this card: P4 reads 4 bytes an element, the others read and
 // write 8, at 3.35 TB/s (2^24 elements: 0.0200 ms and 0.0401 ms). The
-// chained scans P7 and P8 are further bounded by their chain: 512 links at
-// 2^24 with tiles of 32,768.
+// chained scans P7 and P8 are further bounded by their chain: 64 links at
+// 2^24 with tiles of 32,768 in clusters of 8.
 //
 // Pointers of P4, P5 and P6 are 16-byte aligned (the wrapper checks); the
 // chained scans take any alignment and n. The caller zeroes P4's sums and
 // the chained scans' flags and ticket on the launch's stream.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
 
-// ---- P6, P4: chunks of 16-byte vectors -------------------------------------
+// ---- P6: a copy through TMA bulk transfers ---------------------------------
+constexpr unsigned kCopyChunkBytes = 8192;  // the largest chunk: 2,048 elements
+constexpr unsigned kCopyStages = 24;        // the ring of chunks in shared memory
+constexpr unsigned kCopyLag = 8;            // stores in flight before their stages refill
+constexpr unsigned kCopySmemBytes = kCopyStages * kCopyChunkBytes;
+static_assert(kCopyLag >= 1 && kCopyLag < kCopyStages, "a chunk is loaded before it is waited on");
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned phase) {
+  unsigned done;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(phase) : "memory");
+  } while (!done);
+}
+
+// Block b copies chunks b, b + grid, b + 2 * grid, ... of `chunk` bytes
+// (the host makes every block's count of chunks equal, to within the last
+// chunk of the array, which may be shorter: a shorter transfer). Chunks are
+// dealt out in turn, not as one share a block: the blocks then read and
+// write neighbouring addresses at any moment, which measured faster on the
+// H100 than shares of 1/132 of the array each. Thread 0 alone: it loads up
+// to kCopyStages chunks ahead, each into its stage with an mbarrier
+// counting the stage's bytes in; stores each chunk as soon as it is in;
+// and refills the stage of the chunk kCopyLag before once that chunk's
+// store has read it (`wait_group.read`). Both transfers carry an L2
+// evict-first policy: nothing is read twice. Every size and address is a
+// multiple of 16, as the bulk copy needs.
+__global__ void __launch_bounds__(32)
+grid_copy_kernel(const unsigned char* __restrict__ x, unsigned char* __restrict__ out,
+                 unsigned long long total, unsigned chunk) {
+  extern __shared__ __align__(128) unsigned char stage[];
+  __shared__ __align__(8) unsigned long long full[kCopyStages];
+  if (threadIdx.x != 0) return;
+  const unsigned long long lo = (unsigned long long)blockIdx.x * chunk;
+  const unsigned long long step = (unsigned long long)gridDim.x * chunk;
+  const unsigned long long chunks = lo < total ? (total - lo + step - 1) / step : 0;
+  for (unsigned s = 0; s < kCopyStages; ++s)
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_addr(full + s)) : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  unsigned long long policy;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;" : "=l"(policy));
+  auto bytes_of = [&](unsigned long long k) {
+    const unsigned long long left = total - lo - k * step;
+    return (unsigned)(left < chunk ? left : chunk);
+  };
+  auto load = [&](unsigned long long k) {
+    const unsigned s = (unsigned)(k % kCopyStages), bar = smem_addr(full + s);
+    const unsigned bytes = bytes_of(k);
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+                 ::"r"(bar), "r"(bytes) : "memory");
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes.L2::cache_hint"
+        " [%0], [%1], %2, [%3], %4;"
+        ::"r"(smem_addr(stage + s * kCopyChunkBytes)), "l"(x + lo + k * step), "r"(bytes),
+        "r"(bar), "l"(policy) : "memory");
+  };
+  for (unsigned long long k = 0; k < chunks && k < kCopyStages; ++k) load(k);
+  for (unsigned long long k = 0; k < chunks; ++k) {
+    const unsigned s = (unsigned)(k % kCopyStages);
+    mbar_wait(smem_addr(full + s), (unsigned)(k / kCopyStages) & 1);
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    asm volatile("cp.async.bulk.global.shared::cta.bulk_group.L2::cache_hint [%0], [%1], %2, %3;"
+                 ::"l"(out + lo + k * step), "r"(smem_addr(stage + s * kCopyChunkBytes)),
+                 "r"(bytes_of(k)), "l"(policy) : "memory");
+    asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+    if (k >= kCopyLag && k - kCopyLag + kCopyStages < chunks) {
+      asm volatile("cp.async.bulk.wait_group.read %0;" ::"n"(kCopyLag) : "memory");
+      load(k - kCopyLag + kCopyStages);
+    }
+  }
+  // the stores read shared memory until they complete: the block waits
+  asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+}
+
+// ---- P4: chunks of 16-byte vectors -----------------------------------------
 constexpr unsigned kChunkThreads = 256;
 constexpr unsigned kVecs = 16;  // vectors a thread
 constexpr unsigned kChunkVecs = kChunkThreads * kVecs;  // a chunk: 16,384 elements
-
-__global__ void __launch_bounds__(kChunkThreads)
-grid_copy_kernel(const uint4* __restrict__ x, uint4* __restrict__ out, unsigned long long nvec) {
-  const unsigned long long base = (unsigned long long)blockIdx.x * kChunkVecs + threadIdx.x;
-  uint4 v[kVecs];
-#pragma unroll
-  for (unsigned k = 0; k < kVecs; ++k) {
-    const unsigned long long i = base + k * kChunkThreads;
-    if (i < nvec) v[k] = x[i];
-  }
-#pragma unroll
-  for (unsigned k = 0; k < kVecs; ++k) {
-    const unsigned long long i = base + k * kChunkThreads;
-    if (i < nvec) out[i] = v[k];
-  }
-}
 
 // CUDA block c sums chunk (c % parts) of probe block (c / parts).
 __global__ void __launch_bounds__(kChunkThreads)
@@ -252,61 +326,156 @@ addback_kernel(const unsigned* __restrict__ offs, const unsigned* __restrict__ x
   }
 }
 
-__device__ __forceinline__ unsigned long long load_acquire(const unsigned long long* p) {
+// ---- P7, P8: the chain, carried cluster by cluster --------------------------
+constexpr unsigned kCluster = 8;  // blocks a cluster; one link of the chain a cluster
+
+// The link is relaxed, with no fence and no L1 invalidation on it: a
+// cluster's flag and inclusive prefix share one aligned 64-bit word,
+// written by one store and read by one load, and a single aligned 64-bit
+// access is single-copy atomic, so a reader sees the word whole or not at
+// all; and no other datum is published through the flag (each block
+// writes its own tile of `out`, which no other block reads), so nothing
+// has to be ordered before or after it.
+__device__ __forceinline__ unsigned long long load_relaxed(const unsigned long long* p) {
   unsigned long long v;
-  asm volatile("ld.acquire.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");
+  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");
   return v;
 }
 
-__device__ __forceinline__ void store_release(unsigned long long* p, unsigned long long v) {
-  asm volatile("st.release.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v) : "memory");
+__device__ __forceinline__ void store_relaxed(unsigned long long* p, unsigned long long v) {
+  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v) : "memory");
 }
 
-// flags[t]: 0 until tile t publishes, then (inclusive prefix << 32) | 1,
-// written by one store, so the value is never seen without its flag.
+// flags[c]: 0 until cluster c publishes, then (inclusive prefix << 32) | 1.
+// Cluster c (its place from the ticket, so that a cluster waits only on
+// clusters that already run) holds tiles c * kCluster + rank. Hazards:
+// - The grid is a whole number of clusters: the last cluster's blocks past
+//   the array (lo >= n) hold no elements, read nothing, write nothing, and
+//   still pass every cluster barrier with the identity 0 as their total.
+// - Shared memory of another block is touched only between the first
+//   cluster barrier (every block of the cluster has started) and the last
+//   (no block exits while a partner may still read or write its shared
+//   memory).
+// - The 16-byte path needs both pointers 16-byte aligned and a whole tile;
+//   any other tile (the last partial one, a view that starts at an odd
+//   element) takes the scalar path.
+// - Launched only as clusters of kCluster (cudaLaunchKernelEx, after
+//   cudaOccupancyMaxActiveClusters shows one can be resident); a launch of
+//   any other shape traps rather than run unchained.
 template <class Op, bool kInclusive>
 __global__ void __launch_bounds__(kScanThreads)
 chained_scan_kernel(const typename Op::T* __restrict__ x, unsigned long long n,
                     typename Op::T* __restrict__ out, unsigned long long* __restrict__ flags,
                     unsigned long long* __restrict__ ticket) {
   using T = typename Op::T;
+  cg::cluster_group cluster = cg::this_cluster();
+  const unsigned rank = cluster.block_rank();
   __shared__ T warp_tot[kGroups][kScanWarps + 1];  // + 1: no bank conflicts
-  __shared__ unsigned long long s_tile;
-  __shared__ T s_prefix;
-  if (threadIdx.x == 0) s_tile = atomicAdd(ticket, 1ull);
-  __syncthreads();
-  const unsigned long long tile = s_tile;
-  const unsigned long long lo = tile * kTile, hi = lo + kTile < n ? lo + kTile : n;
+  __shared__ unsigned long long s_cluster;  // the leader's: the cluster's place in the chain
+  __shared__ T s_tile_total[kCluster];      // the leader's: each block's tile total
+  __shared__ T s_prefix;                    // this block's prefix, put here by the leader
+  if (threadIdx.x == 0) {
+    if (cluster.num_blocks() != kCluster) __trap();
+    if (rank == 0) s_cluster = atomicAdd(ticket, 1ull);
+  }
+  cluster.sync();  // every block runs, and the leader's ticket is in
+  const unsigned long long c = *cluster.map_shared_rank(&s_cluster, 0);
+  const unsigned long long lo = (c * kCluster + rank) * kTile;
+  const unsigned long long hi = lo + kTile < n ? lo + kTile : n;
   const bool vec = aligned16(x, out) && lo + kTile <= n;
   scan_tile<Op, kInclusive>(x, out, lo, hi, vec, warp_tot, [&](T total) {
-    if (threadIdx.x == 0) {
-      T prefix = 0;
-      if (tile > 0) {
-        unsigned long long d;
-        do {
-          d = load_acquire(flags + tile - 1);
-        } while (d == 0);
-        prefix = (T)(unsigned)(d >> 32);
+    if (threadIdx.x == 0) *cluster.map_shared_rank(&s_tile_total[rank], 0) = total;
+    cluster.sync();  // the tile totals are in the leader
+    if (rank == 0 && threadIdx.x < 32) {
+      // lane r < kCluster: the inclusive scan of the tile totals to block r
+      const unsigned lane = threadIdx.x;
+      T inc = lane < kCluster ? s_tile_total[lane] : T(0);
+#pragma unroll
+      for (int o = 1; o < (int)kCluster; o <<= 1) {
+        const T u = __shfl_up_sync(kFull, inc, o);
+        if (lane >= (unsigned)o) inc = Op::op(u, inc);
       }
-      store_release(flags + tile,
-                    ((unsigned long long)(unsigned)Op::op(prefix, total) << 32) | 1ull);
-      s_prefix = prefix;
+      const T cluster_total = __shfl_sync(kFull, inc, kCluster - 1);
+      const T before = __shfl_up_sync(kFull, inc, 1);
+      T prefix = 0;
+      if (lane == 0) {
+        if (c > 0) {
+          unsigned long long d;
+          do {
+            d = load_relaxed(flags + c - 1);
+          } while (d == 0);
+          prefix = (T)(unsigned)(d >> 32);
+        }
+        store_relaxed(flags + c,
+                      ((unsigned long long)(unsigned)Op::op(prefix, cluster_total) << 32) | 1ull);
+      }
+      prefix = __shfl_sync(kFull, prefix, 0);
+      if (lane < kCluster)
+        *cluster.map_shared_rank(&s_prefix, lane) = lane ? Op::op(prefix, before) : prefix;
     }
-    __syncthreads();
+    cluster.sync();  // each block's prefix is in its shared memory
     return s_prefix;
   });
+  cluster.sync();  // no block leaves while a partner may touch its shared memory
+}
+
+cudaLaunchConfig_t chain_config(unsigned blocks, cudaStream_t stream,
+                                cudaLaunchAttribute* cluster_dim) {
+  cluster_dim->id = cudaLaunchAttributeClusterDimension;
+  cluster_dim->val.clusterDim.x = kCluster;
+  cluster_dim->val.clusterDim.y = 1;
+  cluster_dim->val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(kScanThreads);
+  cfg.stream = stream;
+  cfg.attrs = cluster_dim;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// The clusters of kCluster blocks of the chained scan that the current
+// device can hold at once (0: none, and no chained scan can run).
+template <class Op, bool kInclusive>
+int chain_max_active(int* active) {
+  auto kernel = chained_scan_kernel<Op, kInclusive>;
+  if (kCluster > 8) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return err;
+  }
+  cudaLaunchAttribute cluster_dim;
+  const cudaLaunchConfig_t cfg = chain_config(kCluster, 0, &cluster_dim);
+  return cudaOccupancyMaxActiveClusters(active, kernel, &cfg);
 }
 
 template <class Op, bool kInclusive>
 int launch_chained(const void* x, long long n, void* out, void* scratch, void* stream) {
   if (n < 1) return cudaErrorInvalidValue;
   const long long tiles = (n + kTile - 1) / kTile;
-  if (tiles > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const long long clusters = (tiles + kCluster - 1) / kCluster;
+  if (clusters * kCluster > 0x7fffffffLL) return cudaErrorInvalidValue;
+  // whether a cluster can be resident: asked once a process (the port
+  // runs on one device)
+  static int active = -1;
+  if (active < 0) {
+    const int err = chain_max_active<Op, kInclusive>(&active);
+    if (err != cudaSuccess) {
+      active = -1;
+      return err;
+    }
+  }
+  if (active < 1) return cudaErrorLaunchOutOfResources;
   unsigned long long* flags = (unsigned long long*)scratch;
   using T = typename Op::T;
-  chained_scan_kernel<Op, kInclusive><<<(unsigned)tiles, kScanThreads, 0, (cudaStream_t)stream>>>(
-      (const T*)x, (unsigned long long)n, (T*)out, flags, flags + tiles);
-  return cudaGetLastError();
+  cudaLaunchAttribute cluster_dim;
+  const cudaLaunchConfig_t cfg = chain_config(
+      (unsigned)(clusters * kCluster), (cudaStream_t)stream, &cluster_dim);
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, chained_scan_kernel<Op, kInclusive>,
+                                             (const T*)x, (unsigned long long)n, (T*)out,
+                                             flags, flags + clusters);
+  const cudaError_t last = cudaGetLastError();  // read, and cleared for the next launch
+  return err != cudaSuccess ? err : last;
 }
 
 }  // namespace
@@ -316,10 +485,25 @@ extern "C" {
 // out = x, n elements (a multiple of 4); x, out 16-byte aligned.
 int trs_grid_copy(const void* x, void* out, long long n, void* stream) {
   if (n < 4 || n % 4) return cudaErrorInvalidValue;
-  const long long blocks = (n / 4 + kChunkVecs - 1) / kChunkVecs;
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  grid_copy_kernel<<<(unsigned)blocks, kChunkThreads, 0, (cudaStream_t)stream>>>(
-      (const uint4*)x, (uint4*)out, (unsigned long long)(n / 4));
+  int dev, sms;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  static bool smem_set = false;
+  if (err == cudaSuccess && !smem_set) {
+    err = cudaFuncSetAttribute(grid_copy_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kCopySmemBytes);
+    smem_set = err == cudaSuccess;
+  }
+  if (err != cudaSuccess) return err;
+  // a block an SM, each with an equal count of chunks of at most
+  // kCopyChunkBytes, every chunk a whole number of 128-byte lines
+  const unsigned long long total = 4ull * n, grid = (unsigned long long)sms;
+  const unsigned long long per = (total + grid * kCopyChunkBytes - 1) / (grid * kCopyChunkBytes);
+  const unsigned long long chunk = (total + grid * per * 128 - 1) / (grid * per * 128) * 128;
+  const unsigned long long chunks = (total + chunk - 1) / chunk;
+  grid_copy_kernel<<<(unsigned)(chunks < grid ? chunks : grid), 32, kCopySmemBytes,
+                     (cudaStream_t)stream>>>((const unsigned char*)x, (unsigned char*)out, total,
+                                             (unsigned)chunk);
   return cudaGetLastError();
 }
 
@@ -351,8 +535,9 @@ int trs_addback(const void* offs, const void* x, long long n, long long block_el
   return cudaGetLastError();
 }
 
-// out = the exclusive u32 scan of x[0:n]. scratch: ceil(n / 32768) flags and
-// one ticket, 64 bits each, zeroed on `stream`.
+// out = the exclusive u32 scan of x[0:n]. scratch: one flag a cluster,
+// ceil(ceil(n / kTile) / kCluster), and one ticket, 64 bits each, zeroed on
+// `stream`.
 int trs_chained_scan(const void* x, long long n, void* out, void* scratch, void* stream) {
   return launch_chained<AddU32, false>(x, n, out, scratch, stream);
 }
@@ -361,6 +546,13 @@ int trs_chained_scan(const void* x, long long n, void* out, void* scratch, void*
 // for trs_chained_scan.
 int trs_cummax(const void* x, long long n, void* out, void* scratch, void* stream) {
   return launch_chained<MaxI32, true>(x, n, out, scratch, stream);
+}
+
+// *cluster = the blocks of a chained scan's cluster; *active = the clusters
+// that the current device can hold at once.
+int trs_chain_clusters(int* cluster, int* active) {
+  *cluster = (int)kCluster;
+  return chain_max_active<AddU32, false>(active);
 }
 
 const char* trs_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
