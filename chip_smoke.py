@@ -19,7 +19,9 @@ per-row iota; S = 4,096 Zipf-sized and S = 1,024 equal segments;
 ``argsort_segments``) and the 8-column, 4-key-word 64-bit segmented sort
 at 2^22; then, as a path of its own with its own launch counts, the
 compare-exchange probes of ``tpu_radix_sort_torch/benchmarks`` (P1
-``explore_ce`` in every variant, both formulations, 16 and 0 stages; P2 and
+``explore_ce`` in every variant, both formulations, 16 and 0 stages, each
+beside a ``copy_`` of its columns, and held against its plain version at
+one tile, two tiles and 2^24, twice in a row and in place; P2 and
 P3 ``explore_blocksort`` on one tile and on 256, beside ``torch.sort(dim=1)``
 and ``sort_batched``; the scan probes P4-P7 ``explore_scan`` at 2^24: the
 copy floor, K4, the chained scan and the two-pass scan with P4 and P5
@@ -36,15 +38,20 @@ replayed calls each the median of several, its tile calls split into
 phase 1 and the mean merge tail, the row-local network (the batched
 sorts' own two networks among them) and every 4-key or 8-column instance
 replayed too; K4 also at a 4-byte offset and 20 times
-in a row at 2^26; K2 20 calls back to back; K6 with 1 to 6 columns, each
+in a row at 2^26; K2 20 calls back to back; K3 call by call, each after a
+write that empties L2 of its input; K6 with 1 to 6 columns, each
 beside a device ``copy_`` of the same columns), and prints:
 
-- the card's name and power limit (``nvidia-smi``) and the build's register,
-  shared-memory and spill lines (it fails if the K1 tile kernel spills with
-  2 or 3 columns, either K1 kernel with 4 key words or 8 columns, the K6
-  reorder kernel at all, P1's 3-column register kernels, or any kernel of
-  ``csrc/explore_scan.cu``);
+- the card's name and power limit and its maximum SM clock (``nvidia-smi``)
+  and the build's register, shared-memory and spill lines (it fails if the
+  K1 tile kernel spills with 2 or 3 columns, either K1 kernel with 4 key
+  words or 8 columns, the K6 reorder kernel at all, any of P1's 20 kernels,
+  or any kernel of ``csrc/explore_scan.cu``);
 - one line per check, and one JSON line per probe case;
+- one JSON line ``{"ce_probe_design": {...}}``: P1's problem shape, threads
+  and buffers a block, and for each of its 20 kernels the blocks resident
+  an SM, the shared memory a block and the grid (from the C launch) at
+  2^24 and on one tile;
 - one JSON line ``{"scan_probe_design": {...}}``: the chained scans'
   cluster size and the clusters resident at once, P7's and P8's links at
   2^24 and their time a link, and P6 over ``copy_``;
@@ -173,6 +180,18 @@ def main() -> int:
         capture_output=True, text=True, check=True,
     ).stdout.strip()
     print(smi, flush=True)
+    clock = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip()
+    print(f"max SM clock: {clock} (the integer rate of the probes' bounds, "
+          f"benchmarks/__init__.py ALU_OPS_PER_S, takes 1980 MHz)", flush=True)
+    from tpu_radix_sort_torch.benchmarks import SM_CLOCK_HZ, SMS
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    check(clock == f"{SM_CLOCK_HZ / 1e6:.0f} MHz" and sms == SMS,
+          f"the card has the {SMS} SMs and the {SM_CLOCK_HZ / 1e6:.0f} MHz maximum SM clock "
+          f"that ALU_OPS_PER_S assumes ({sms} SMs, {clock})")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
     run(torch.device("cuda"))
     print(json.dumps({"ok": True, "device": {
@@ -215,9 +234,10 @@ def run(dev) -> None:
     global_spills = {m.groups(): b for e, b in spills.items()
                      if (m := re.search(r"bitonic_global_stage_kernelILi(\d)ELi(\d)E", e))}
     reorder_spills = {e: b for e, b in spills.items() if "reorder_kernel" in e}
-    # P1's register kernels: (kind, columns, key words, column type) -> spill bytes
-    ce_regs_spills = {m.groups(): b for e, b in spills.items()
-                      if (m := re.search(r"ce_regs_kernelILi(\d)ELi(\d)ELi(\d)ELb\dE(\w)", e))}
+    # P1's kernels: (formulation, kind, columns, key words, column type) ->
+    # spill bytes
+    ce_spills = {m.groups(): b for e, b in spills.items()
+                 if (m := re.search(r"ce_(smem|regs)_kernelILi(\d)ELi(\d)ELi(\d)ELb\dE(\w)", e))}
     # the kernels of csrc/explore_scan.cu: P6, P4, P5, and the chained scan
     # with sum (P7) and with max (P8)
     scan_probe_spills = {m.group(0): b for e, b in spills.items()
@@ -912,6 +932,18 @@ def run(dev) -> None:
     def ms(fn, *args, iters=20):
         return device_time(fn, *args, warmup=2, iters=iters) * 1e3
 
+    def cold_ms(fn, *args, iters=10):
+        """Mean ms of single calls, each after a 128 MB write that leaves
+        none of its input in the 50 MB L2 (a call that reads what the last
+        call left there beats its bytes bound)."""
+        flush = torch.empty(1 << 25, dtype=torch.int32, device=dev)
+        fn(*args)
+        events = []
+        for _ in range(iters):
+            flush.fill_(0)
+            timed(lambda: fn(*args), events)
+        return sum(elapsed_ms(events)) / iters
+
     n = HEADLINE_N
     u0 = keys.view(torch.int32)
     xr = torch.stack([u0, iota.view(torch.int32)])
@@ -932,12 +964,13 @@ def run(dev) -> None:
         plain_ms=ms(lambda x: radix.reorder_pass_plain(x, offs0, bit=0, tile=rtile, out=yr),
                     xr, iters=3),
         bytes=2 * 2 * 4 * n + 4 * radix.R * nb, ops=2 * n, library_ms=None)
-    # K3 at the headline size, on the sorted u64 keys (a gate's full read)
+    # K3 at the headline size, on the sorted u64 keys (a gate's full read),
+    # each call with a cold L2
     hi64, lo64 = common.to_sortable_u64_cols(r64k)
     max_err["disorder_cols_kernel"] = max(max_err["disorder_cols_kernel"], u32_err(
         checksort.disorder_cols_kernel(hi64, lo64), checksort.disorder_cols_plain(hi64, lo64)))
     rows["disorder_cols_kernel"] = dict(
-        ms=ms(checksort.disorder_cols_kernel, hi64, lo64),
+        ms=cold_ms(checksort.disorder_cols_kernel, hi64, lo64),
         plain_ms=ms(checksort.disorder_cols_plain, hi64, lo64, iters=5),
         bytes=2 * 4 * n + 4, ops=2 * (n - 1), library_ms=None)
     check(max_err["disorder_cols_kernel"] == 0, "K3 == plain on the sorted u64 keys at 2^26")
@@ -1026,7 +1059,8 @@ def run(dev) -> None:
         max_err["explore_ce_kernel"] = max(max_err["explore_ce_kernel"], explore_ce.check(
             n_arr, variant, stable, device=dev))
         check(True, f"P1 {variant}, {n_arr} columns, stable={stable} == plain: smem and "
-              f"regs, 16 and 0 stages, the probe's and a tie-heavy input, 2^24")
+              f"regs, 16 and 0 stages, the probe's and a tie-heavy input, at "
+              f"n = {explore_ce.CHECK_SIZES}, two launches in a row and one in place")
     err = explore_blocksort.check(dev)
     max_err["blocksort_ce_kernel"] = max_err["blocksort_stages_kernel"] = err
     check(err == 0, "P2 == plain on 1 and 3 tiles; P3 == plain on 1 and 256 tiles, 64 and "
@@ -1058,13 +1092,41 @@ def run(dev) -> None:
     def probe_row(**match):
         return next(r for r in probe_rows if all(r.get(k) == v for k, v in match.items()))
 
+    # P1's launch on this card, as the C launch computes it: the blocks
+    # resident an SM and the grid at 2^24 and on one tile, every instance
+    ce_cases = {}  # function id -> its first case
+    for _, n_arr, variant, stable in explore_ce.cases(ce_all=True):
+        ce_cases.setdefault(explore_ce.function_id(variant, n_arr, stable),
+                            (n_arr, variant, stable))
+    ce_design = []
+    for fn, (n_arr, variant, stable) in sorted(ce_cases.items()):
+        for form in explore_ce.FORMULATIONS:
+            at = {n: explore_ce.ce_resident(variant, n_arr, stable, form, n)
+                  for n in (explore_ce.N, explore_ce.T)}
+            ce_design.append({"function": fn, "variant": variant, "columns": n_arr,
+                              "formulation": form, **at[explore_ce.N],
+                              "grid_1_tile": at[explore_ce.T]["grid"]})
+    print(json.dumps({"ce_probe_design": {
+        "problem": [explore_ce.PROBLEM_ROWS, explore_ce.PROBLEM_LANES],
+        "threads": explore_ce.CE_THREADS, "buffers": explore_ce.CE_BUFFERS,
+        "instances": ce_design}}))
+    problems = explore_ce.N // explore_ce.PROBLEM
+    check(len(ce_design) == 20 and all(
+        d["blocks_per_sm"] >= 1 and d["grid_1_tile"] == explore_ce.T // explore_ce.PROBLEM
+        and d["grid"] == min(problems, d["blocks_per_sm"] * d["sms"]) for d in ce_design),
+          "every P1 instance can be resident (cudaOccupancyMaxActiveBlocksPerMultiprocessor) "
+          "and launches one block a problem on one tile, every resident block at 2^24")
+
     # the kernels line's row of each probe: the probe's own case (P1 at
     # 2 columns in registers, the shape of K1's key + rank stages; P3 at
     # 256 tiles; P9 int32 at reps 256, where its operations, not its bytes,
     # bound it); every probe kernel's calls timed queued behind a sleep, so
     # that one-tile P2 shows the card's time, not its launch; bytes read
-    # and written once, one operation an element a stage (P1: a compare a
-    # pair a key word; P2, P3: min or max, and an add)
+    # and written once; operations on the card's integer lanes as each
+    # module counts them (P1 explore_ce.ops_per_pair: a two-word compare in
+    # each direction and four selects a pair; P2, P3 a minimum or maximum
+    # an element a stage, their adds issuing elsewhere; P9 a minimum or
+    # maximum an int32 element a stage)
     p1 = probe_row(probe="P1", variant="roll", columns=2, formulation="regs")
     p2 = probe_row(probe="P2")
     p3 = probe_row(probe="P3", tiles=explore_blocksort.RATE_TILES)
@@ -1085,11 +1147,14 @@ def run(dev) -> None:
     tile = explore_blocksort.ROWS * explore_blocksort.LANES
     n9 = explore_keys16.TOTAL_ROWS * explore_keys16.LANES
     for name, r, n_bytes, n_ops in (
-            ("explore_ce_kernel", p1, 2 * 2 * 4 * n_p, explore_ce.STAGES * n_p // 2 * 2),
-            ("blocksort_ce_kernel", p2, 2 * 4 * tile, 2 * tile),
+            ("explore_ce_kernel", p1, 2 * 2 * 4 * n_p, explore_ce.stage_ops("roll", 2, True)),
+            ("blocksort_ce_kernel", p2, 2 * 4 * tile,
+             explore_blocksort.ALU_OPS_PER_ELEMENT * tile),
             ("blocksort_stages_kernel", p3, 2 * 4 * tile * explore_blocksort.RATE_TILES,
-             2 * explore_blocksort.NSTAGE * tile * explore_blocksort.RATE_TILES),
-            ("keys16_stage_kernel", p9, 2 * 4 * n9, explore_keys16.RATE_REPS[-1] * n9)):
+             explore_blocksort.ALU_OPS_PER_ELEMENT * explore_blocksort.NSTAGE * tile
+             * explore_blocksort.RATE_TILES),
+            ("keys16_stage_kernel", p9, 2 * 4 * n9,
+             explore_keys16.stage_ops(torch.int32, explore_keys16.RATE_REPS[-1], n9))):
         rows[name] = dict(ms=r["ms"], plain_ms=r["plain_ms"], bytes=n_bytes, ops=n_ops,
                           library_ms=None)
     # the scan probes at block_rows 512 and P8 at 2^24, each beside its one
@@ -1116,10 +1181,10 @@ def run(dev) -> None:
           f"stores in bytes: {spilled})")
     check(len(reorder_spills) == 1 and not any(reorder_spills.values()),
           f"reorder_kernel spills no registers (ptxas spill stores in bytes: {reorder_spills})")
-    ce3 = {k: b for k, b in ce_regs_spills.items() if k[1] == "3"}
-    check(len(ce_regs_spills) == 10 and len(ce3) == 3 and not any(ce3.values()),
-          f"P1's register kernels with 3 columns spill no registers (ptxas spill stores "
-          f"in bytes by (kind, columns, key words, column type): {ce_regs_spills})")
+    check(len(ce_spills) == 20 and not any(ce_spills.values()),
+          f"P1's 20 kernels (10 functions, smem and regs) spill no registers (ptxas spill "
+          f"stores in bytes by (formulation, kind, columns, key words, column type): "
+          f"{ce_spills})")
     check(sorted(scan_probe_spills) == [
               "addback_kernel", "blocksum_kernel", "chained_scan_kernelINS_6AddU32",
               "chained_scan_kernelINS_6MaxI32", "grid_copy_kernel"]

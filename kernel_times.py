@@ -2,7 +2,8 @@
 """Time the port's redesigned kernels and the sorts around them, for one
 checkout of the repository, on one CUDA card.
 
-    python3 kernel_times.py [--root DIR] [--label NAME] [--scan-probes-only]
+    python3 kernel_times.py [--root DIR] [--label NAME]
+                            [--scan-probes-only | --ce-probe-only | --sass]
 
 imports ``tpu_radix_sort_torch`` from DIR (default: beside this script),
 builds its kernels there, and prints one JSON line: the card's name and power
@@ -26,11 +27,22 @@ Every time is the mean of CUDA-event windows after a warm-up. Running it
 on two checkouts in turns on one machine (A, B, B, A) compares them on one
 card. It uses only entry points that every slice of the port has had since
 the scan probes.
+
+``--ce-probe-only`` builds only ``explore_ce.cu`` and times every case of
+the compare-exchange probe P1 (``explore_ce.cases(ce_all=True)``) at 2^24 in
+both formulations, at 16 and at 0 stages, each beside a ``copy_`` of the
+same columns, every call queued behind a sleep. ``--sass`` builds the
+probes' sources (``explore_ce``, ``explore_blocksort``, ``explore_keys16``)
+and prints, for each of their kernels, the count of each SASS opcode that
+``cuobjdump -sass`` shows (the instruction mix behind the operation counts
+of their bounds).
 """
 from __future__ import annotations
 
 import argparse
+import collections
 import json
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -44,8 +56,13 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=str(Path(__file__).resolve().parent))
     ap.add_argument("--label", default=None)
-    ap.add_argument("--scan-probes-only", action="store_true",
-                    help="build and time only the scan probes P6, P7 and P8")
+    only = ap.add_mutually_exclusive_group()
+    only.add_argument("--scan-probes-only", action="store_true",
+                      help="build and time only the scan probes P6, P7 and P8")
+    only.add_argument("--ce-probe-only", action="store_true",
+                      help="build and time only the compare-exchange probe P1")
+    only.add_argument("--sass", action="store_true",
+                      help="print the SASS opcode counts of the probes' kernels")
     args = ap.parse_args()
     import torch
 
@@ -59,14 +76,23 @@ def main() -> int:
     from tpu_radix_sort_torch.runtime.timing import device_time
 
     assert Path(trt.__file__).resolve().is_relative_to(Path(args.root).resolve())
-    _build.build(["explore_scan", "explore_keys16"] if args.scan_probes_only else None)
+    sources = (["explore_scan", "explore_keys16"] if args.scan_probes_only
+               else ["explore_ce"] if args.ce_probe_only
+               else ["explore_ce", "explore_blocksort", "explore_keys16"] if args.sass else None)
+    _build.build(sources)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
-    if args.scan_probes_only:
-        print(json.dumps({"kernel_times": {"label": args.label or args.root, "card": smi,
-                                           "scan_probes": scan_probes(torch, device_time)}}),
-              flush=True)
+    label = args.label or args.root
+    if args.scan_probes_only or args.ce_probe_only:
+        key, fn = (("scan_probes", scan_probes) if args.scan_probes_only
+                   else ("ce_probe", ce_probe))
+        print(json.dumps({"kernel_times": {"label": label, "card": smi,
+                                           key: fn(torch, device_time)}}), flush=True)
+        return 0
+    if args.sass:
+        print(json.dumps({"sass": {"label": label, "card": smi,
+                                   "opcodes": sass_counts(_build, sources)}}), flush=True)
         return 0
 
     def ms(fn, *a, iters=20):
@@ -199,6 +225,52 @@ def scan_probes(torch, device_time) -> dict:
                       "cummax_ms": ms(lambda x: torch.cummax(x, 0), starts, iters=3),
                       "counting_sort_ms": ms(ek.counting_sort_u16, keys, iters=10)}
     return out
+
+
+def ce_probe(torch, device_time) -> dict:
+    """Every case of P1 at 2^24 in both formulations, at 16 and 0 stages,
+    each beside a ``copy_`` of the same columns; every call queued behind
+    a sleep."""
+    from tpu_radix_sort_torch.benchmarks import explore_ce as ec
+
+    def ms(fn, *a):
+        return device_time(fn, *a, warmup=2, iters=20, queued=True) * 1e3
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    x = torch.randint(-2**31, 2**31, (ec.N,), dtype=torch.int32, device="cuda", generator=gen)
+    out = {}
+    for name, n_arr, variant, stable in ec.cases(ce_all=True):
+        cols = ec.probe_columns(x, n_arr, variant)
+        y = torch.empty_like(cols)
+        row = {"variant": variant, "columns": n_arr, "stable": stable,
+               "copy_ms": ms(y.copy_, cols)}
+        for form in ec.FORMULATIONS:
+            for n_stages in (ec.STAGES, 0):
+                row[f"{form}_{n_stages}_ms"] = ms(
+                    lambda c: ec.ce_stages(c, variant, stable, formulation=form,
+                                           n_stages=n_stages), cols)
+        out[name] = row
+        del cols, y
+    return out
+
+
+def sass_counts(build, sources) -> dict:
+    """{kernel: {opcode: count}} over the SASS of the built sources, the
+    opcode with its modifiers (``ISETP.GT.U32.AND``), predicates dropped."""
+    cuobjdump = Path(build._nvcc()).with_name("cuobjdump")
+    counts = {}
+    for name in sources:
+        text = subprocess.run([str(cuobjdump), "-sass", str(build._paths(name)[1])],
+                              capture_output=True, text=True, check=True).stdout
+        fn = None
+        for line in text.splitlines():
+            if m := re.match(r"\s*Function : (\S+)", line):
+                fn = counts.setdefault(m.group(1), collections.Counter())
+            elif fn is not None and (m := re.match(
+                    r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)", line)):
+                fn[m.group(1)] += 1
+    return {k: dict(sorted(v.items())) for k, v in counts.items()}
 
 
 if __name__ == "__main__":

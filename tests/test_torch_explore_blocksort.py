@@ -96,3 +96,14 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
         eb.stage_tiles(torch.zeros((512, 128), dtype=torch.int64))
     with pytest.raises(ValueError):
         eb.stage_tiles(torch.zeros((512, 128), dtype=torch.int32), -1)
+
+
+def test_stage_bound():
+    """P3's bound: a minimum or maximum an element a stage at the card's
+    integer rate, above the bytes at 64 stages; the bytes at 0 stages."""
+    t, by = eb.stage_bound_ms(eb.RATE_TILES)
+    assert by == "operations"
+    assert t == pytest.approx(eb.RATE_TILES * eb.ROWS * eb.LANES * eb.NSTAGE
+                              / (132 * 64 * 1.98e9) * 1e3)
+    t, by = eb.stage_bound_ms(eb.RATE_TILES, 0)
+    assert by == "bytes" and t == pytest.approx(2**27 / 3.35e12 * 1e3)

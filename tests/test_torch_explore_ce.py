@@ -14,6 +14,7 @@ restored after."""
 import contextlib
 import functools
 import importlib.util
+import re
 from pathlib import Path
 
 import jax
@@ -119,3 +120,99 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
         explore_ce.ce_stages(t, "roll", True, formulation="shuffle")
     with pytest.raises(TypeError):
         explore_ce.ce_stages(t[:1].to(torch.int64), "roll", False)
+
+
+# ---- the kernel's plan: problems, grid, layout (no kernel launched) --------
+def _problem_base(p):
+    """csrc/explore_ce.cu `problem_base`: element (row 0, lane 0) of problem
+    p, tile p // 16, half (p // 8) % 2, lanes 16 (p % 8) to 16 (p % 8) + 15."""
+    groups = explore_ce.LANES // explore_ce.PROBLEM_LANES
+    return (p // (2 * groups)) * explore_ce.T + (p // groups) % 2 * explore_ce.PROBLEM_ROWS \
+        * explore_ce.LANES + p % groups * explore_ce.PROBLEM_LANES
+
+
+def _smem_offset(r):
+    """csrc/explore_ce.cu `soff`: the shared offset of problem row r, 32 (r >> 1)
+    + 16 H(r), H(r) = bit 0 ^ bit 1 ^ bit 5 of r."""
+    return (r >> 1) << 5 | ((r ^ r >> 1 ^ r >> 5) & 1) << 4
+
+
+def _cuda_constants():
+    """The `constexpr int` constants of csrc/explore_ce.cu, evaluated in
+    order (C's integer arithmetic on the names defined before)."""
+    src = (Path(explore_ce.__file__).resolve().parents[1] / "csrc" / "explore_ce.cu").read_text()
+    env = {}
+    for name, expr in re.findall(r"^constexpr int (\w+) = ([^;]+);", src, re.M):
+        env[name] = eval(expr.replace("/", "//"), {"__builtins__": {}}, dict(env))
+    return env
+
+
+def test_python_and_cuda_constants_agree():
+    c = _cuda_constants()
+    assert (c["kRows"], c["kProbLanes"], c["kProblem"]) == (
+        explore_ce.PROBLEM_ROWS, explore_ce.PROBLEM_LANES, explore_ce.PROBLEM) == (512, 16, 8192)
+    assert c["kThreads"] == explore_ce.CE_THREADS
+    assert c["kTeams"] == explore_ce.CE_BUFFERS
+    assert c["kSlots"] == 32  # five row bits in registers
+    assert (c["kTileElems"], c["kStages"]) == (explore_ce.T, explore_ce.STAGES)
+
+
+def test_problems_partition_the_columns_and_hold_every_pair():
+    """Problem p is rows 0-511 of one half tile, 16 lanes: the problems of
+    two tiles cover every element once, and every stage pairs two elements
+    of one problem."""
+    assert [_problem_base(p) for p in (0, 1, 7, 8, 15, 16, 31)] == [
+        0, 16, 112, 65536, 65536 + 112, 131072, 131072 + 65536 + 112]
+    n = 2 * explore_ce.T
+    owner = np.full(n, -1)
+    rows = np.arange(explore_ce.PROBLEM_ROWS)[:, None] * explore_ce.LANES
+    for p in range(n // explore_ce.PROBLEM):
+        idx = _problem_base(p) + rows + np.arange(explore_ce.PROBLEM_LANES)
+        assert (owner[idx] == -1).all()
+        owner[idx] = p
+    assert (owner >= 0).all()
+    e = np.arange(n)
+    for m in sorted(set(explore_ce.MS)):
+        assert (owner[e ^ (explore_ce.LANES * m)] == owner).all()
+
+
+def test_shared_layout():
+    """Rows of 16 words at 32 (r >> 1) + 16 H(r), H = bit 0 ^ bit 1 ^ bit 5:
+    one problem column fills 8,192 words once, and the rows that the two
+    half-warps of an access take (differing in bit 0, 1 or 5) start in
+    different halves of the 32 banks."""
+    off = [_smem_offset(r) for r in range(explore_ce.PROBLEM_ROWS)]
+    assert off[:4] == [0, 16, 48, 32] and off[32:34] == [528, 512]
+    words = {o + lane for o in off for lane in range(16)}
+    assert words == set(range(explore_ce.PROBLEM))
+    for r in range(explore_ce.PROBLEM_ROWS):
+        for bit in (1, 2, 32):
+            assert off[r] % 32 != off[r ^ bit] % 32
+
+
+@pytest.mark.parametrize("variant,n_arr,stable,ops", [
+    ("roll", 1, False, 2), ("minmax", 1, False, 2), ("xorswap", 1, False, 2),
+    ("roll", 2, True, 8), ("fold2minmax", 2, True, 8), ("xorswap", 2, True, 6),
+    ("roll", 3, True, 10), ("fold3minmax", 3, True, 10), ("xorswap", 3, True, 8),
+    ("u64", 1, False, 6),
+])
+def test_operation_counts(variant, n_arr, stable, ops):
+    assert explore_ce.ops_per_pair(variant, n_arr, stable) == ops
+    assert explore_ce.stage_ops(variant, n_arr, stable) == 16 * 2**23 * ops
+    # every case moves more bytes than the card's integer lanes take for its
+    # counted operations: the bytes bound it
+    t, by = explore_ce.bound_ms(variant, n_arr, stable)
+    assert by == "bytes" and t == pytest.approx(
+        2 * n_arr * (8 if variant == "u64" else 4) * 2**24 / 3.35e12 * 1e3)
+
+
+@pytest.mark.parametrize("variant,n_arr,stable", CASES)
+def test_in_place_on_the_cpu(variant, n_arr, stable):
+    cols, _ = _tile(n_arr, variant)
+    t = _torch_cols(cols)
+    want = explore_ce.ce_plain(t, variant, stable)
+    x = t.clone()
+    assert explore_ce.ce_stages_into(x, x, variant, stable) is x
+    assert torch.equal(x, want)
+    with pytest.raises(ValueError):
+        explore_ce.ce_stages_into(t, torch.empty(t.shape[1], dtype=t.dtype), variant, stable)

@@ -126,3 +126,16 @@ def test_p8_wrappers_refuse_what_they_do_not_take():
         ek.counting_sort_u16(torch.zeros(8, dtype=torch.int32))
     with pytest.raises(ValueError):
         ek.matmul_hist_u16(torch.zeros(12, dtype=torch.int16).view(torch.uint16), blk=8)
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.uint16, torch.int16, torch.bfloat16])
+def test_stage_operation_counts(dtype):
+    """P9's operations on the integer lanes, for every lane type: one
+    minimum or maximum an element a stage (16 bits: a packed minimum and a
+    packed maximum a word of two elements), so the bound at reps 256 is the
+    same 2^30 operations for every type."""
+    n = ek.TOTAL_ROWS * ek.LANES
+    assert n == 1 << 22
+    assert ek.stage_ops(dtype, 256, n) == 1 << 30
+    assert ek.stage_ops(dtype, 1, 2) == 2
+    assert ek.stage_ops(dtype, 0, n) == 0

@@ -309,23 +309,44 @@ def test_batched_and_segmented_on_card_match_golden(cuda):
 
 @pytest.mark.parametrize("variant,n_arr,stable", sorted(explore_ce.VARIANTS))
 def test_explore_ce_kernel_matches_plain(cuda, variant, n_arr, stable):
-    """P1 on two tiles, both formulations, 16 and 0 stages, on the probe's
-    input and on a tie-heavy one."""
-    n = 2 * explore_ce.T
+    """P1 on one tile (fewer problems than SMs) and on two, both
+    formulations, 16 and 0 stages, on the probe's input and on a tie-heavy
+    one; into a new tensor and in place."""
     rng = np.random.default_rng(n_arr)
-    x = torch.from_numpy(rng.integers(0, 2**32, n, dtype=np.uint64).astype(np.uint32)
-                         .view(np.int32)).to(cuda)
     before = _build.EXPLORE_CE.launches
-    for cols in (explore_ce.probe_columns(x, n_arr, variant),
-                 explore_ce.tie_columns(n, n_arr, variant, 3, cuda)):
-        want = explore_ce.ce_plain(cols, variant, stable)
-        for form in explore_ce.FORMULATIONS:
-            got = explore_ce.ce_stages(cols, variant, stable, formulation=form)
-            torch.cuda.synchronize()
-            assert torch.equal(got, want), form
-            assert torch.equal(explore_ce.ce_stages(cols, variant, stable, formulation=form,
-                                                    n_stages=0), cols), form
-    assert _build.EXPLORE_CE.launches == before + 8
+    for n in (explore_ce.T, 2 * explore_ce.T):
+        x = torch.from_numpy(rng.integers(0, 2**32, n, dtype=np.uint64).astype(np.uint32)
+                             .view(np.int32)).to(cuda)
+        for cols in (explore_ce.probe_columns(x, n_arr, variant),
+                     explore_ce.tie_columns(n, n_arr, variant, 3, cuda)):
+            want = explore_ce.ce_plain(cols, variant, stable)
+            for form in explore_ce.FORMULATIONS:
+                got = explore_ce.ce_stages(cols, variant, stable, formulation=form)
+                torch.cuda.synchronize()
+                assert torch.equal(got, want), (n, form)
+                assert torch.equal(explore_ce.ce_stages(cols, variant, stable, formulation=form,
+                                                        n_stages=0), cols), (n, form)
+                y = cols.clone()
+                explore_ce.ce_stages_into(y, y, variant, stable, formulation=form)
+                assert torch.equal(y, want), (n, form, "in place")
+    assert _build.EXPLORE_CE.launches == before + 24
+
+
+@pytest.mark.parametrize("variant,n_arr,stable", sorted(explore_ce.VARIANTS))
+def test_explore_ce_launch_grid(cuda, variant, n_arr, stable):
+    """The grid the C launch computes: one block a problem where there are
+    fewer problems than resident blocks (16 on one tile, 32 on two), every
+    resident block at 2^24 (2,048 problems); and lengths it refuses."""
+    for form in explore_ce.FORMULATIONS:
+        r = explore_ce.ce_resident(variant, n_arr, stable, form)
+        assert r["blocks_per_sm"] >= 1 and r["sms"] == torch.cuda.get_device_properties(
+            cuda).multi_processor_count
+        assert r["grid"] == min(2048, r["blocks_per_sm"] * r["sms"])
+        assert explore_ce.ce_resident(variant, n_arr, stable, form, explore_ce.T)["grid"] == 16
+        assert explore_ce.ce_resident(variant, n_arr, stable, form, 2 * explore_ce.T)["grid"] == 32
+        for n in (0, explore_ce.T + explore_ce.PROBLEM):
+            with pytest.raises(RuntimeError):
+                explore_ce.ce_resident(variant, n_arr, stable, form, n)
 
 
 @pytest.mark.parametrize("tiles", [1, 3])

@@ -15,9 +15,16 @@
 Each runs on the card as ``python -m tpu_radix_sort_torch.benchmarks.<name>``.
 """
 
-# The card's rates that the bounds of the probes and of chip_smoke.py use
-# (H100 SXM data sheet): HBM3 bytes a second; no 32-bit integer rate is in
-# the data sheet's table, so its float32 rate outside the tensor cores
-# stands for the card's 32-bit ALU peak.
+# The card's rates that the bounds of the probes and of chip_smoke.py use.
+# HBM3 bytes a second (H100 SXM data sheet). 32-bit integer operations a
+# second, the rate of what the probes count (a min, a compare, a select: one
+# instruction each on the integer lanes): SMS SMs x 64 INT32 lanes an SM
+# (Hopper architecture white paper) x SM_CLOCK_HZ, the card's maximum SM
+# clock (`nvidia-smi --query-gpu=clocks.max.sm`: 1980 MHz; chip_smoke.py
+# prints both and fails on a card where either differs). The float32 rate
+# of the data sheet, 67e12, counts a fused multiply-add as two operations
+# on 128 lanes an SM, and is no rate of these instructions.
 HBM_BYTES_PER_S = 3.35e12
-ALU_OPS_PER_S = 67e12
+SMS = 132
+SM_CLOCK_HZ = 1.98e9
+ALU_OPS_PER_S = SMS * 64 * SM_CLOCK_HZ

@@ -34,13 +34,28 @@ from ..ops import common
 from ..ops.batched import sort_batched
 from ..runtime.timing import device_time
 from ..utils import interop
-from . import HBM_BYTES_PER_S
+from . import ALU_OPS_PER_S, HBM_BYTES_PER_S
 
 ROWS, LANES = 512, 128
 NSTAGE = 64
 SHIFT = 8  # the row roll of both kernels
 RATE_TILES = 256
 N = 1 << 24
+# Operations on the card's 32-bit integer lanes (ALU_OPS_PER_S) an element
+# (P2) or an element a stage (P3): the minimum or maximum. The add beside
+# it (P2's running sum, P3's + 1) compiles to VIADD, which does not issue
+# on those lanes: `kernel_times.py --sass` shows one VIMNMX and one VIADD
+# an element a stage, and P3 runs both faster than the lanes could run the
+# two (PERF.md).
+ALU_OPS_PER_ELEMENT = 1
+
+
+def stage_bound_ms(tiles: int, n_stages: int = NSTAGE) -> tuple[float, str]:
+    """P3's least time on the card: its tiles read once and written once,
+    or its stages' integer operations, whichever is longer; and which."""
+    t_bytes = tiles * 2 * 4 * ROWS * LANES / HBM_BYTES_PER_S * 1e3
+    t_ops = tiles * ROWS * LANES * n_stages * ALU_OPS_PER_ELEMENT / ALU_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def _tiles(x: torch.Tensor) -> torch.Tensor:
@@ -161,7 +176,7 @@ def library_lines(device="cuda", seed=0) -> list[dict]:
 
 def bench(device="cuda", seed=0) -> list[dict]:
     """P2 on one tile; P3 on one tile and on 256, with its 0-stage time;
-    each beside its plain version's time and its bytes bound."""
+    each beside its plain version's time and its bound."""
     dev = interop.resolve_device(device)
     x = random_tiles(1, seed, dev)
     out = ce_tiles(x)
@@ -180,11 +195,12 @@ def bench(device="cuda", seed=0) -> list[dict]:
         print(f"compare-exchange stage ({tiles} tiles): {per_stage * 1e3:.3f} us per stage of "
               f"{nelem} elems -> {nelem / per_stage / 1e6:.1f} Gelem/s/stage "
               f"(0 stages {ms0:.4f} ms)", flush=True)
+        b_ms, b_by = stage_bound_ms(tiles)
         rows.append({"probe": "P3", "tiles": tiles, "ms": ms, "ms_zero_stages": ms0,
                      "us_per_stage": per_stage * 1e3,
                      "gelem_stages_per_s": nelem / per_stage / 1e6,
                      "plain_ms": device_time(stages_plain, xt, warmup=1, iters=3) * 1e3,
-                     "bound_ms": tiles * tile_bytes / HBM_BYTES_PER_S * 1e3})
+                     "bound_ms": b_ms, "bound_by": b_by})
     return rows
 
 

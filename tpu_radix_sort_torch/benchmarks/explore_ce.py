@@ -18,9 +18,17 @@ stable; unsigned, but signed for column 0 of the ``*minmax`` folds):
 :func:`ce_plain` computes them in PyTorch; :func:`ce_stages` launches
 ``csrc/explore_ce.cu`` on a CUDA tensor in either formulation (``'smem'``:
 every stage through shared memory; ``'regs'``: register windows of five
-index bits, as the K1 tile kernel keeps them) and with 16 or 0 stages, so
-that a stage's time is (t16 - t0) / 16. :func:`probe_columns` builds the
-probe's input (column i = x + i), as its ``run_variant`` does.
+index bits, as the K1 tile kernel keeps them) and with 16 or 0 stages.
+:func:`probe_columns` builds the probe's input (column i = x + i), as its
+``run_variant`` does.
+
+The kernel splits the elements into independent problems of 512 rows x 16
+lanes of one half tile and runs persistent blocks, as many as can be
+resident, each walking the problems dealt round the SMs (:func:`ce_resident`)
+with two teams of 8 warps, each team with its own problem buffer: one
+team's copies in and out run while the other team runs its stages. So
+(t16 - t0) / 16 is the time of a stage that the copies do not hide, not the
+time of a stage alone.
 
 Not ported from the probe's ``main``: ``bench_slicing_chunked`` (:239) and
 ``bench_engine_fold2`` (:282). They time the whole engine under the
@@ -33,6 +41,7 @@ Run on the card: ``python -m tpu_radix_sort_torch.benchmarks.explore_ce``
 """
 from __future__ import annotations
 
+import ctypes
 import os
 
 import numpy as np
@@ -42,7 +51,7 @@ from .. import _build
 from ..ops import common
 from ..runtime.timing import device_time
 from ..utils import interop
-from . import HBM_BYTES_PER_S
+from . import ALU_OPS_PER_S, HBM_BYTES_PER_S
 
 N = 1 << 24
 LANES = 128
@@ -53,6 +62,15 @@ T = TILE_ROWS * LANES
 MS = [1 << (i % 9) for i in range(16)]
 STAGES = len(MS)
 FORMULATIONS = ("smem", "regs")
+# The kernel's problems (csrc/explore_ce.cu kRows, kProbLanes): 512 rows x
+# 16 lanes of one half of a tile, independent since the stages pair rows
+# only within it. CE_THREADS threads a block (two teams of 256),
+# CE_BUFFERS problems in its shared memory at once (one a team).
+PROBLEM_ROWS = TILE_ROWS // 2
+PROBLEM_LANES = 16
+PROBLEM = PROBLEM_ROWS * PROBLEM_LANES
+CE_THREADS = 512
+CE_BUFFERS = 2
 
 DESC, SWAP, FOLD = "desc", "swap", "fold"
 # Function id of csrc/explore_ce.cu -> (kind, columns, key words, signed
@@ -111,6 +129,56 @@ def function_id(variant: str, n_arr: int, stable: bool) -> int:
                          f"the cases are {sorted(VARIANTS)}") from None
 
 
+def ops_per_pair(variant: str, n_arr: int, stable: bool) -> int:
+    """32-bit integer operations one compare-exchange of the case needs.
+    One u32 column: a minimum and a maximum (2). One u64 column: a two-word
+    compare and a select of each word of each side (6). Two or three
+    columns: a two-word compare of (column 0, column 1) in each direction
+    that the function decides (kSwap one, else two; a tie of both key
+    words must give both sides b or both a) and a select of each column of
+    each side."""
+    kind, n_arr, n_keys, _, wide = FUNCTIONS[function_id(variant, n_arr, stable)]
+    if n_arr == 1:
+        return 6 if wide else 2
+    return (1 if kind == SWAP else 2) * n_keys + 2 * n_arr
+
+
+def stage_ops(variant: str, n_arr: int, stable: bool, n: int = N,
+              n_stages: int = STAGES) -> int:
+    """The operations of `n_stages` stages over n elements (n / 2 pairs a
+    stage)."""
+    return n_stages * n // 2 * ops_per_pair(variant, n_arr, stable)
+
+
+def bound_ms(variant: str, n_arr: int, stable: bool, n: int = N) -> tuple[float, str]:
+    """The least time of 16 stages on the card: the columns read once and
+    written once at HBM_BYTES_PER_S, or the stage operations at
+    ALU_OPS_PER_S, whichever is longer; and which of the two it is."""
+    t_bytes = 2 * n_arr * (8 if variant == "u64" else 4) * n / HBM_BYTES_PER_S * 1e3
+    t_ops = stage_ops(variant, n_arr, stable, n) / ALU_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def ce_resident(variant: str, n_arr: int, stable: bool, formulation: str = "regs",
+                n: int = N) -> dict:
+    """On the current CUDA device, as the kernel's launch computes them: the
+    case's blocks that can be resident on an SM
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), the SMs, the shared
+    memory a block, and the grid that n elements launch (as many blocks as
+    can be resident, never more than the n / PROBLEM problems)."""
+    fn = function_id(variant, n_arr, stable)
+    lib = _build.library("explore_ce")
+    per_sm, sms, smem, grid = (ctypes.c_int() for _ in range(4))
+    err = lib.trs_explore_ce_resident(fn, FORMULATIONS.index(formulation), ctypes.c_longlong(n),
+                                      ctypes.byref(per_sm), ctypes.byref(sms),
+                                      ctypes.byref(smem), ctypes.byref(grid))
+    if err:
+        raise RuntimeError(f"the launch of P1 could not be planned: CUDA error {err} "
+                           f"({lib.trs_error_string(err).decode()})")
+    return {"blocks_per_sm": per_sm.value, "sms": sms.value, "smem_bytes": smem.value,
+            "grid": grid.value}
+
+
 def _check(cols: torch.Tensor, fn: int) -> None:
     _, n_arr, _, _, wide = FUNCTIONS[fn]
     want = torch.int64 if wide else torch.int32
@@ -123,6 +191,9 @@ def _check(cols: torch.Tensor, fn: int) -> None:
         raise ValueError(f"the length must be a positive multiple of {T}")
     if cols.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {cols.device}")
+    if cols.device.type == "cuda" and cols.data_ptr() % 16:
+        raise ValueError("the kernel copies 16 bytes at a time: the columns must start "
+                         "16-byte aligned")
 
 
 def ce_plain(cols: torch.Tensor, variant: str, stable: bool,
@@ -161,15 +232,25 @@ def ce_stages(cols: torch.Tensor, variant: str, stable: bool, *,
     tensor, n a multiple of 131,072; a new tensor. A CPU tensor runs
     :func:`ce_plain`; a CUDA tensor launches ``csrc/explore_ce.cu`` in the
     given formulation."""
+    return ce_stages_into(cols, torch.empty_like(cols), variant, stable,
+                          formulation=formulation, n_stages=n_stages)
+
+
+def ce_stages_into(cols: torch.Tensor, out: torch.Tensor, variant: str, stable: bool, *,
+                   formulation: str = "regs", n_stages: int = STAGES) -> torch.Tensor:
+    """:func:`ce_stages` into `out`, a tensor like `cols` or `cols` itself
+    (in place); returns `out`."""
     fn = function_id(variant, cols.shape[0], stable)
     _check(cols, fn)
+    _check(out, fn)
     if formulation not in FORMULATIONS:
         raise ValueError(f"formulation must be one of {FORMULATIONS}")
     if n_stages not in (0, STAGES):
         raise ValueError(f"n_stages must be 0 or {STAGES}")
+    if out.shape != cols.shape or out.device != cols.device:
+        raise ValueError("out must have the shape and device of the columns")
     if cols.device.type == "cpu":
-        return ce_plain(cols, variant, stable, n_stages)
-    out = torch.empty_like(cols)
+        return out.copy_(ce_plain(cols, variant, stable, n_stages))
     _build.EXPLORE_CE(cols.data_ptr(), out.data_ptr(), cols.shape[1], fn,
                       FORMULATIONS.index(formulation), n_stages,
                       torch.cuda.current_stream(cols.device).cuda_stream)
@@ -207,12 +288,14 @@ def _bits(seed: int, device) -> torch.Tensor:
 
 def bench(name, n_arr, variant, stable=False, *, device="cuda", seed=0) -> list[dict]:
     """Time the case in both formulations at 16 and 0 stages on the probe's
-    2^24 input, and its plain version; print a line each; return them."""
+    2^24 input, beside a ``copy_`` of the same columns, and its plain
+    version; print a line each; return them."""
     dev = interop.resolve_device(device)
     cols = probe_columns(_bits(seed, dev), n_arr, variant)
-    wide = variant == "u64"
-    bound_ms = 2 * n_arr * (8 if wide else 4) * N / HBM_BYTES_PER_S * 1e3
+    b_ms, b_by = bound_ms(variant, n_arr, stable)
     plain_ms = device_time(ce_plain, cols, variant, stable, warmup=1, iters=3) * 1e3
+    y = torch.empty_like(cols)
+    copy_ms = device_time(y.copy_, cols, queued=True) * 1e3
     rows = []
     for form in FORMULATIONS:
         t16 = device_time(lambda c: ce_stages(c, variant, stable, formulation=form), cols,
@@ -223,29 +306,43 @@ def bench(name, n_arr, variant, stable=False, *, device="cuda", seed=0) -> list[
         rows.append({
             "probe": "P1", "name": name, "variant": variant, "columns": n_arr,
             "stable": stable, "formulation": form, "ms": t16, "ms_zero_stages": t0,
-            "us_per_stage": per_stage_ms * 1e3,
+            "copy_ms": copy_ms, "us_per_stage": per_stage_ms * 1e3,
             "gelem_stages_per_s": N / per_stage_ms / 1e6 if per_stage_ms > 0 else None,
-            "bound_ms": bound_ms, "plain_ms": plain_ms,
+            "ops": stage_ops(variant, n_arr, stable), "bound_ms": b_ms, "bound_by": b_by,
+            "plain_ms": plain_ms,
         })
         print(f"{name + ' ' + form:52s} {t16:8.4f} ms  0 stages {t0:8.4f} ms  "
-              f"{per_stage_ms * 1e3:7.3f} us/st", flush=True)
+              f"copy_ {copy_ms:8.4f} ms  {per_stage_ms * 1e3:7.3f} us/st", flush=True)
     return rows
+
+
+CHECK_SIZES = (T, 2 * T, N)  # fewer problems than SMs, two tiles, the probe's size
 
 
 def check(n_arr, variant, stable=False, *, device="cuda", seed=0) -> int:
     """Hold the kernel (both formulations, 16 and 0 stages) against
-    :func:`ce_plain` on the probe's input and on a tie-heavy one, byte for
-    byte; raise on a difference. Returns the largest |difference| (0)."""
+    :func:`ce_plain` on the probe's input and on a tie-heavy one, at each
+    of CHECK_SIZES, byte for byte: two launches in a row on one stream into
+    new tensors (a second launch after the first, whatever the first left
+    behind), then one in place; raise on a difference. Returns the largest
+    |difference| (0)."""
     dev = interop.resolve_device(device)
-    for cols in (probe_columns(_bits(seed, dev), n_arr, variant),
-                 tie_columns(N, n_arr, variant, seed + 1, dev)):
-        want = ce_plain(cols, variant, stable)
-        for form in FORMULATIONS:
-            got = ce_stages(cols, variant, stable, formulation=form)
-            same = ce_stages(cols, variant, stable, formulation=form, n_stages=0)
-            if not (torch.equal(got, want) and torch.equal(same, cols)):
-                raise AssertionError(f"P1 {variant} ({n_arr} columns, stable={stable}, "
-                                     f"{form}) differs from its plain version")
+    for n in CHECK_SIZES:
+        for cols in (probe_columns(_bits(seed, dev)[:n // LANES], n_arr, variant),
+                     tie_columns(n, n_arr, variant, seed + 1, dev)):
+            for n_stages in (STAGES, 0):
+                want = ce_plain(cols, variant, stable, n_stages)
+                for form in FORMULATIONS:
+                    got = [ce_stages(cols, variant, stable, formulation=form,
+                                     n_stages=n_stages) for _ in range(2)]
+                    x = cols.clone()
+                    ce_stages_into(x, x, variant, stable, formulation=form, n_stages=n_stages)
+                    for what, t in (("first", got[0]), ("second", got[1]), ("in place", x)):
+                        if not torch.equal(t, want):
+                            raise AssertionError(
+                                f"P1 {variant} ({n_arr} columns, stable={stable}, {form}, "
+                                f"{n_stages} stages, n = {n}, {what} launch) differs from "
+                                f"its plain version")
     return 0
 
 

@@ -160,6 +160,19 @@ def random_rows(dtype, rows: int, seed: int, device) -> torch.Tensor:
     return torch.from_numpy(u.view(np.int16)).to(device).view(dtype)
 
 
+def stage_ops(dtype, reps: int, n_el: int) -> int:
+    """Operations on the card's 32-bit integer lanes that `reps` stages over
+    n_el elements need, for every lane type: one minimum or maximum an
+    element a stage (int32 one a lane; 16 bits a packed minimum and a packed
+    maximum a word of two elements). The stage kernel issues more for 16
+    bits (SASS, `kernel_times.py --sass`): a byte permute that merges the
+    two results a word, and one more where the roll s = 1 + (r & 3) is odd
+    (the partner pair then straddles two words), 7/4 an element a stage;
+    bfloat16 adds its NaN rule. Those are the formulation's cost, not the
+    function's, and are not counted."""
+    return reps * n_el
+
+
 def stage_rate(dtype, reps: int = REPS, *, device="cuda", seed: int = 0) -> dict:
     """Element-stages a second through `reps` stages of the dtype over
     32,768 rows (the kernel's calls queued, so that their launch hides)."""
@@ -169,7 +182,7 @@ def stage_rate(dtype, reps: int = REPS, *, device="cuda", seed: int = 0) -> dict
     n_el = TOTAL_ROWS * LANES
     name = str(dtype).removeprefix("torch.")
     bytes_ms = 2 * x.element_size() * n_el / HBM_BYTES_PER_S * 1e3
-    ops_ms = reps * n_el / ALU_OPS_PER_S * 1e3
+    ops_ms = stage_ops(dtype, reps, n_el) / ALU_OPS_PER_S * 1e3
     row = {"probe": "P9", "dtype": name, "reps": reps, "ms": ms,
            "gelem_stages_per_s": n_el * reps / ms / 1e6,
            "bound_ms": max(bytes_ms, ops_ms),
