@@ -30,8 +30,9 @@ the probe's 2^24 u16 sort lines, the two counting sorts with P8's running
 max among them, each byte-checked against ``torch.sort``, P8 alone beside
 ``torch.cummax``, and P9 for four lane types at 16 and 256 stages), each
 kernel then held against its plain version byte for byte (the chained
-scans P7 and P8 also at the edges of their clusters, and the copy P6 at
-the edges of its chunks, each case 50 times);
+scans P7 and P8 also at the edges of their clusters, the copy P6 at
+the edges of its chunks, each case 50 times, and P9 also on every 16-bit
+pattern beside the values the lane types disagree on);
 checks every result byte for byte, times the sorts, the scan,
 each kernel, its plain version and ``torch.sort``/``torch.cumsum`` (K1's
 replayed calls each the median of several, its tile calls split into
@@ -46,7 +47,8 @@ beside a device ``copy_`` of the same columns), and prints:
   and the build's register, shared-memory and spill lines (it fails if the
   K1 tile kernel spills with 2 or 3 columns, either K1 kernel with 4 key
   words or 8 columns, the K6 reorder kernel at all, any of P1's 20 kernels,
-  or any kernel of ``csrc/explore_scan.cu``);
+  any kernel of ``csrc/explore_scan.cu``, or P9's int32 or bfloat16
+  kernel);
 - one line per check, and one JSON line per probe case;
 - one JSON line ``{"ce_probe_design": {...}}``: P1's problem shape, threads
   and buffers a block, and for each of its 20 kernels the blocks resident
@@ -55,6 +57,9 @@ beside a device ``copy_`` of the same columns), and prints:
 - one JSON line ``{"scan_probe_design": {...}}``: the chained scans'
   cluster size and the clusters resident at once, P7's and P8's links at
   2^24 and their time a link, and P6 over ``copy_``;
+- one JSON line ``{"keys16_stage_design": {...}}``: P9 for each lane type
+  at 16 and 256 stages, its time, bound, what sets the bound and the share
+  of the bound reached, and each time over int32's;
 - one JSON line ``{"kernels": [...]}``;
 - last, ``{"ok": true, "device": {...}}``.
 
@@ -243,6 +248,9 @@ def run(dev) -> None:
     scan_probe_spills = {m.group(0): b for e, b in spills.items()
                          if (m := re.search(r"(grid_copy|blocksum|addback)_kernel"
                                             r"|chained_scan_kernelINS_6(AddU32|MaxI32)", e))}
+    # P9's kernels with 128 registers of row: int32 and bfloat16
+    stage_spills = {m.group(0): b for e, b in spills.items()
+                    if (m := re.search(r"stage(32|_bf16)_kernel", e))}
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
@@ -1067,7 +1075,8 @@ def run(dev) -> None:
           "0 stages")
     max_err["keys16_stage_kernel"] = max_err["cummax_kernel"] = explore_keys16.check(dev)
     check(max_err["keys16_stage_kernel"] == 0,
-          "P9 == plain: int32, uint16, int16, bfloat16 at reps 0, 1, 7, 16 and 256; P8 == "
+          "P9 == plain: int32, uint16, int16, bfloat16 at reps 0, 1, 7, 16 and 256, and on "
+          f"every 16-bit pattern at reps {explore_keys16.ALL_PATTERN_REPS}; P8 == "
           "plain: 1 to 2^24 elements, full-range, rising, negative and run-start inputs, and "
           f"a rising walk at the chain's edges, each launched {explore_scan.REPEATS} times")
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -1141,6 +1150,17 @@ def run(dev) -> None:
         "p8_ms": p8["ms"], "p8_us_per_link": p8["ms"] * 1e3 / links,
         "p6_ms": p6["ms"], "copy_ms": p6["library_ms"],
         "p6_over_copy": p6["ms"] / p6["library_ms"]}}))
+    # P9 by lane type: the widened bfloat16 stage against int32's
+    stage_design = {}
+    for dt in explore_keys16.DTYPES:
+        name = str(dt).removeprefix("torch.")
+        for reps in explore_keys16.RATE_REPS:
+            r = probe_row(probe="P9", dtype=name, reps=reps)
+            stage_design[f"{name}_{reps}"] = {
+                "ms": r["ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                "share": r["bound_ms"] / r["ms"],
+                "over_int32": r["ms"] / probe_row(probe="P9", dtype="int32", reps=reps)["ms"]}
+    print(json.dumps({"keys16_stage_design": stage_design}))
     n_s = explore_scan.N
     nb_s = n_s // (br * explore_scan.LANES)
     n_p = explore_ce.N
@@ -1191,6 +1211,10 @@ def run(dev) -> None:
           and not any(scan_probe_spills.values()),
           f"the five kernels of csrc/explore_scan.cu spill no registers (ptxas spill stores "
           f"in bytes: {scan_probe_spills})")
+    check(sorted(stage_spills) == ["stage32_kernel", "stage_bf16_kernel"]
+          and not any(stage_spills.values()),
+          f"P9's int32 and bfloat16 kernels spill no registers (ptxas spill stores in bytes: "
+          f"{stage_spills})")
     kernels = []
     for k in _build.KERNELS:
         r = rows[k.name]

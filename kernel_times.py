@@ -3,7 +3,8 @@
 checkout of the repository, on one CUDA card.
 
     python3 kernel_times.py [--root DIR] [--label NAME]
-                            [--scan-probes-only | --ce-probe-only | --sass]
+                            [--scan-probes-only | --ce-probe-only |
+                             --keys16-probe-only | --sass]
 
 imports ``tpu_radix_sort_torch`` from DIR (default: beside this script),
 builds its kernels there, and prints one JSON line: the card's name and power
@@ -31,7 +32,11 @@ the scan probes.
 ``--ce-probe-only`` builds only ``explore_ce.cu`` and times every case of
 the compare-exchange probe P1 (``explore_ce.cases(ce_all=True)``) at 2^24 in
 both formulations, at 16 and at 0 stages, each beside a ``copy_`` of the
-same columns, every call queued behind a sleep. ``--sass`` builds the
+same columns, every call queued behind a sleep. ``--keys16-probe-only``
+builds only ``explore_keys16.cu`` and times the stage probe P9
+(``explore_keys16.stage_rate``) for its four lane types at reps 16 and
+256 on the probe's 32,768 seeded rows, every call queued behind a sleep,
+beside each case's bound and the plain version's time. ``--sass`` builds the
 probes' sources (``explore_ce``, ``explore_blocksort``, ``explore_keys16``)
 and prints, for each of their kernels, the count of each SASS opcode that
 ``cuobjdump -sass`` shows (the instruction mix behind the operation counts
@@ -61,6 +66,8 @@ def main() -> int:
                       help="build and time only the scan probes P6, P7 and P8")
     only.add_argument("--ce-probe-only", action="store_true",
                       help="build and time only the compare-exchange probe P1")
+    only.add_argument("--keys16-probe-only", action="store_true",
+                      help="build and time only the stage probe P9")
     only.add_argument("--sass", action="store_true",
                       help="print the SASS opcode counts of the probes' kernels")
     args = ap.parse_args()
@@ -78,15 +85,17 @@ def main() -> int:
     assert Path(trt.__file__).resolve().is_relative_to(Path(args.root).resolve())
     sources = (["explore_scan", "explore_keys16"] if args.scan_probes_only
                else ["explore_ce"] if args.ce_probe_only
+               else ["explore_keys16"] if args.keys16_probe_only
                else ["explore_ce", "explore_blocksort", "explore_keys16"] if args.sass else None)
     _build.build(sources)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
     label = args.label or args.root
-    if args.scan_probes_only or args.ce_probe_only:
+    if args.scan_probes_only or args.ce_probe_only or args.keys16_probe_only:
         key, fn = (("scan_probes", scan_probes) if args.scan_probes_only
-                   else ("ce_probe", ce_probe))
+                   else ("ce_probe", ce_probe) if args.ce_probe_only
+                   else ("keys16_probe", keys16_probe))
         print(json.dumps({"kernel_times": {"label": label, "card": smi,
                                            key: fn(torch, device_time)}}), flush=True)
         return 0
@@ -253,6 +262,16 @@ def ce_probe(torch, device_time) -> dict:
         out[name] = row
         del cols, y
     return out
+
+
+def keys16_probe(torch, device_time) -> dict:
+    """P9 for every lane type at each of the probe's reps (16 and 256):
+    ``explore_keys16.stage_rate``'s row (the kernel's calls queued behind a
+    sleep, its bound, the plain version's time)."""
+    from tpu_radix_sort_torch.benchmarks import explore_keys16 as ek
+
+    return {f"{str(dt).removeprefix('torch.')}_{reps}": ek.stage_rate(dt, reps, device="cuda")
+            for dt in ek.DTYPES for reps in ek.RATE_REPS}
 
 
 def sass_counts(build, sources) -> dict:

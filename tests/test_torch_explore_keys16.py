@@ -7,7 +7,10 @@ stages only pick one of two values, or a NaN, which must be the JAX one).
 
 The rows are seeded random patterns; the first 64 hold the values where
 lane types disagree: NaNs of both signs and several payloads, subnormals,
--0.0 and +0.0, infinities."""
+-0.0 and +0.0, infinities. 1,024 more rows hold every 16-bit pattern beside
+those values. The CUDA kernel's bfloat16 code (a signed minimum and an
+unsigned maximum of 32-bit codes) is held against the plain rule through
+its torch mirror, on every canonical pattern."""
 import functools
 import importlib.util
 from pathlib import Path
@@ -35,11 +38,12 @@ NUMPY = {torch.int32: np.int32, torch.uint16: np.uint16, torch.int16: np.int16,
 
 
 def _jax_stages(x_np, reps):
+    block = min(BLOCK, x_np.shape[0])
     f = pl.pallas_call(
         functools.partial(probe._stage_kernel, reps=reps, dtype=x_np.dtype),
-        grid=(ROWS // BLOCK,),
-        in_specs=[pl.BlockSpec((BLOCK, 128), lambda i: (i, 0))],
-        out_specs=pl.BlockSpec((BLOCK, 128), lambda i: (i, 0)),
+        grid=(x_np.shape[0] // block,),
+        in_specs=[pl.BlockSpec((block, 128), lambda i: (i, 0))],
+        out_specs=pl.BlockSpec((block, 128), lambda i: (i, 0)),
         out_shape=jax.ShapeDtypeStruct(x_np.shape, x_np.dtype), interpret=True)
     return np.asarray(f(jnp.asarray(x_np)))
 
@@ -66,6 +70,52 @@ def test_bf16_nan_and_signed_zero_over_few_stages():
         want = _jax_stages(x_np, reps).view(np.int16)
         assert np.array_equal(ek.stage_plain(x, reps).view(torch.int16).numpy(), want), reps
     assert torch.equal(ek.stage_plain(x, 0).view(torch.int16), x.view(torch.int16))
+
+
+@pytest.mark.parametrize("reps", [1, 2])
+@pytest.mark.parametrize("dtype", ek.DTYPES, ids=str)
+def test_all_pattern_rows_match_the_probe_body(dtype, reps):
+    """Every 16-bit pattern beside a special value (`all_pattern_rows`):
+    at reps 1 each meets a special in the maximum and in the minimum."""
+    x = ek.all_pattern_rows(dtype, "cpu")
+    assert x.shape == (1024, 128)
+    bits = torch.int32 if dtype == torch.int32 else torch.int16
+    want = _jax_stages(x.view(bits).numpy().view(NUMPY[dtype]), reps)
+    got = ek.stage_plain(x, reps).view(bits).numpy()
+    assert np.array_equal(got, want.view(got.dtype))
+
+
+def _canonical_patterns():
+    return ek._bf16_canonical(torch.arange(1 << 16, dtype=torch.int32))
+
+
+def test_bf16_code_round_trips_every_canonical_pattern():
+    """The kernel's code (mirrored by `_bf16_code`/`_bf16_decode`): a
+    bijection of the canonical patterns onto codes, numbers at 0..0xFFFF
+    (the top bit clear) and the two NaNs at 0x80000000 and 0x80000001."""
+    c = _canonical_patterns()
+    code = ek._bf16_code(c)
+    assert torch.equal(ek._bf16_decode(code), c)
+    nan = (c & 0x7FFF) > 0x7F80
+    assert torch.equal(torch.unique(code[nan]), torch.tensor([-2**31, -2**31 + 1]))
+    assert int(code[~nan].min()) >= 0 and int(code[~nan].max()) <= 0xFFFF
+    assert torch.unique(code).numel() == torch.unique(c).numel()
+
+
+def test_bf16_code_min_max_is_the_jax_rule():
+    """The signed minimum and the unsigned maximum of two codes are the codes
+    of `_bf16_min_max`, for every canonical pattern against each special
+    value and 64 seeded random partners (canonicalised)."""
+    c = _canonical_patterns()
+    rng = np.random.default_rng(11)
+    partners = np.concatenate([ek.SPECIALS, rng.integers(0, 2**16, 64).astype(np.uint16)])
+    p = ek._bf16_canonical(torch.from_numpy(partners.astype(np.int32)))
+    x, y = c[:, None].expand(-1, p.numel()), p[None, :].expand(c.numel(), -1)
+    lo, hi = ek._bf16_min_max(x, y)
+    cx, cy = ek._bf16_code(x), ek._bf16_code(y)
+    ux, uy = cx.to(torch.int64) & 0xFFFFFFFF, cy.to(torch.int64) & 0xFFFFFFFF
+    assert torch.equal(ek._bf16_decode(torch.minimum(cx, cy)), lo)
+    assert torch.equal(ek._bf16_decode(torch.maximum(ux, uy).to(torch.int32)), hi)
 
 
 def test_wrapper_refuses_what_the_kernel_does_not_take():

@@ -1,7 +1,9 @@
 """The JAX package's `block_rows=` and `interpret=` keywords on every port
-entry point whose JAX counterpart takes them: accepted, ignored, and the
-bytes are the same with them as without (the column contract makes every
-output independent of the tile). Plain versions on the CPU, no JAX call."""
+entry point whose JAX counterpart takes them, and `axis_name=` on every
+entry point: accepted, ignored, and the bytes are the same with them as
+without (the column contract makes every output independent of the tile;
+`axis_name` names a mesh axis, and without `mesh=` there is none). Plain
+versions on the CPU, no JAX call."""
 import numpy as np
 import pytest
 import torch
@@ -43,3 +45,9 @@ def test_block_rows_and_interpret_are_accepted_and_ignored(name):
     want = _bytes(call())
     for kw in ({"block_rows": 8}, {"interpret": True}, {"block_rows": 512, "interpret": False}):
         assert _bytes(call(**kw)) == want, kw
+
+
+@pytest.mark.parametrize("name", sorted(CALLS))
+def test_axis_name_is_accepted_and_ignored(name):
+    call = CALLS[name]
+    assert _bytes(call(axis_name="x")) == _bytes(call())

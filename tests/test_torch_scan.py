@@ -86,6 +86,16 @@ def test_prefix_sum_kernel_class():
         trt.PrefixSumKernel(count=-1)
 
 
+def test_prefix_sum_kernel_axis_name_matches_jax():
+    """`PrefixSumKernel(count=10, axis_name="x")`: JAX's class takes the
+    keyword with or without a mesh, and so does the port's."""
+    x = _items(7, 64, np.uint32)
+    want = np.asarray(jtrs.PrefixSumKernel(count=10, axis_name="x").dispatch(jnp.asarray(x)))
+    got = trt.PrefixSumKernel(count=10, axis_name="x", device="cpu").dispatch(x)
+    assert _same(got, want)
+    assert _same(got, golden_prefix_sum(x, count=10))
+
+
 def test_input_errors_match_jax_types():
     cases = [
         (TypeError, lambda: trt.prefix_sum(np.zeros(8, np.float32), device="cpu")),

@@ -127,12 +127,14 @@ RadixSortBufferKernel = RadixSortKernel
 
 class RadixSortPackedKernel:
     """Sorts packed (key, value) records laid out as [..., 2] u32 tensors
-    (the reference's texture kernel: key in .x, value in .y)."""
+    (the reference's texture kernel: key in .x, value in .y). The JAX
+    package's `block_rows` and `interpret`, and `axis_name` as every other
+    entry point takes it, are accepted and ignored."""
 
     def __init__(self, *, count: int, bit_count: int = 32,
                  check_order: bool = False, method: str = "auto", tile=None,
-                 block_rows=None, interpret=None, device=None):
-        del block_rows, interpret  # accepted, ignored
+                 block_rows=None, interpret=None, axis_name: str = "x", device=None):
+        del block_rows, interpret, axis_name  # accepted, ignored
         common.validate_bit_count(bit_count)
         sort_ops._resolve_method(method)
         self.count = int(count)
@@ -153,14 +155,17 @@ class PrefixSumKernel:
     """Exclusive (default) or inclusive prefix sum of the first `count`
     elements of a uint32/int32 buffer, u32 wraparound, the rest untouched
     (the reference's `PrefixSumKernel`). `avoid_bank_conflicts`, `block_rows`
-    and `interpret` are accepted for API compatibility and ignored. `device`
-    is where `compile()` warms up: by default the CUDA card.
+    and `interpret` are accepted for API compatibility and ignored, and so is
+    `axis_name` while `mesh=` has no path here (the mesh scan is still to be
+    ported, and `mesh=` raises). `device` is where `compile()` warms up: by
+    default the CUDA card.
     """
 
     def __init__(self, *, count: int, inclusive: bool = False, block_rows=None,
                  interpret=None, avoid_bank_conflicts: bool = False, mesh=None,
-                 device=None):
-        del block_rows, interpret, avoid_bank_conflicts  # accepted, ignored
+                 axis_name: str = "x", device=None):
+        # accepted, ignored
+        del block_rows, interpret, avoid_bank_conflicts, axis_name
         common.reject_mesh(mesh)
         self.count = int(count)
         if self.count < 0:

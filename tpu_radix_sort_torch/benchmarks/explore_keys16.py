@@ -24,17 +24,22 @@ of 128 elements (32,768 rows), `reps` times, s = 1 + (r & 3), p[:, l] =
 x[:, (l - s) mod 128] and x <- min(x, p) at even lanes l, max(x, p) at odd
 ones; for int32, uint16, int16 and bfloat16. :func:`stage_plain` computes
 it in PyTorch; :func:`stage_kernel` launches ``csrc/explore_keys16.cu`` on
-a CUDA tensor (one row a thread in registers; 16-bit rows as packed pairs).
+a CUDA tensor (one row a thread in registers; uint16 and int16 rows as
+packed pairs, bfloat16 rows widened to one 32-bit code an element).
 
 bfloat16 matches what the JAX package computes on the CPU: subnormals
 count as zero of their sign, -0 < +0, and a NaN operand gives 0x7FC0 or
 0xFFC0 (the minimum is 0xFFC0 only if every NaN operand is negative, the
-maximum 0x7FC0 only if every one is positive). uint16 patterns ride in
-int32 in the plain version, as the port's u32 patterns do (torch has no
-uint16 ``minimum`` on the CPU). Where the JAX probe feeds zeros, this one
-feeds seeded random rows, checked against the plain version, at the
-probe's reps = 16 and at reps = 256, where the ALU, not the bytes, sets
-the time.
+maximum 0x7FC0 only if every one is positive). The kernel runs that rule
+as a signed minimum and an unsigned maximum of the code
+:func:`_bf16_code`; the plain version states the rule itself
+(:func:`_bf16_min_max`). uint16 patterns ride in int32 in the plain
+version, as the port's u32 patterns do (torch has no uint16 ``minimum``
+on the CPU). Where the JAX probe feeds zeros, this one feeds seeded random
+rows (:func:`random_rows`) and every 16-bit pattern beside the values the
+lane types disagree on (:func:`all_pattern_rows`), checked against the
+plain version, at the probe's reps = 16 and at reps = 256, where the ALU,
+not the bytes, sets the time.
 
 :func:`main` runs the probe's sort lines at 2^24 u16 keys (the bitonic
 engine, ``method='radix'``, ``method='xla'``, both counting sorts, and the
@@ -59,6 +64,7 @@ TOTAL_ROWS = 1 << 15
 LANES = 128
 REPS = 16
 RATE_REPS = (REPS, 256)
+ALL_PATTERN_REPS = (1, 2, 7, 256)  # the card's check on all_pattern_rows
 DTYPES = (torch.int32, torch.uint16, torch.int16, torch.bfloat16)
 N16 = 1 << 24  # keys of the probe's sort lines
 CUMMAX_BLOCK_ROWS = 512
@@ -99,6 +105,25 @@ def _bf16_min_max(x: torch.Tensor, p: torch.Tensor):
     lo = torch.where(pos_nan, 0x7FC0, torch.where(neg_nan, 0xFFC0, lo))
     hi = torch.where(neg_nan, 0xFFC0, torch.where(pos_nan, 0x7FC0, hi))
     return lo, hi
+
+
+def _bf16_code(w: torch.Tensor) -> torch.Tensor:
+    """The stage kernel's 32-bit code of canonical bfloat16 patterns (in
+    int32): +NaN 0x80000000, -NaN 0x80000001, a number x its total-order
+    code x ^ (0xFFFF if negative else 0x8000), 0..0xFFFF. The signed
+    minimum and the unsigned maximum of two codes are the codes of
+    :func:`_bf16_min_max`. A mirror of ``csrc/explore_keys16.cu``
+    ``bf16_code`` for the CPU tests; no path on the card uses it."""
+    sign = w >> 15
+    flip = torch.where(sign == 1, 0xFFFF, 0x8000).to(torch.int32)
+    return torch.where((w & 0x7FFF) > 0x7F80, sign - 2**31, w ^ flip)
+
+
+def _bf16_decode(c: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`_bf16_code` (``csrc/explore_keys16.cu``
+    ``bf16_decode``): int32 codes -> the patterns in int32."""
+    flip = torch.where((c & 0x8000) != 0, 0x8000, 0xFFFF).to(torch.int32)
+    return torch.where(c < 0, 0x7FC0 | ((c & 1) << 15), c ^ flip)
 
 
 def stage_plain(x: torch.Tensor, reps: int = REPS) -> torch.Tensor:
@@ -144,32 +169,48 @@ def stage_kernel(x: torch.Tensor, reps: int = REPS) -> torch.Tensor:
     return out
 
 
+# The 16-bit values the lane types disagree on: NaNs of both signs and
+# payloads, subnormals, -0.0 and +0.0, infinities.
+SPECIALS = np.array([0x7FC0, 0xFFC0, 0x7F81, 0xFF81, 0x7FFF, 0x0000, 0x8000, 0x0001,
+                     0x8001, 0x007F, 0x7F80, 0xFF80, 0x3F80, 0xBF80, 0x7FEF, 0xFFFF], np.uint16)
+
+
 def random_rows(dtype, rows: int, seed: int, device) -> torch.Tensor:
     """Seeded random rows of `dtype` (16-bit ones as random patterns), with
-    the values the lane types disagree on in the first rows: NaNs of both
-    signs and payloads, subnormals, -0.0 and +0.0."""
+    :data:`SPECIALS` in the first rows."""
     rng = np.random.default_rng(seed)
     if dtype == torch.int32:
         u = rng.integers(-2**31, 2**31, (rows, LANES), dtype=np.int64).astype(np.int32)
         return torch.from_numpy(u).to(device)
     u = rng.integers(0, 2**16, (rows, LANES), dtype=np.int64).astype(np.uint16)
-    special = np.array([0x7FC0, 0xFFC0, 0x7F81, 0xFF81, 0x7FFF, 0x0000, 0x8000, 0x0001,
-                        0x8001, 0x007F, 0x7F80, 0xFF80, 0x3F80, 0xBF80, 0x7FEF, 0xFFFF],
-                       np.uint16)
-    u[: min(rows, 64)] = rng.choice(special, (min(rows, 64), LANES))
+    u[: min(rows, 64)] = rng.choice(SPECIALS, (min(rows, 64), LANES))
     return torch.from_numpy(u.view(np.int16)).to(device).view(dtype)
+
+
+def all_pattern_rows(dtype, device) -> torch.Tensor:
+    """1,024 rows that hold every 16-bit pattern once, in order, at the odd
+    lanes, each beside one of :data:`SPECIALS` at the even lane before it
+    (the specials cycling): at reps 1 every pattern meets a special in the
+    maximum and another in the minimum. int32 rows hold the patterns as
+    int16 values, sign-extended."""
+    u = np.empty((1 << 16) * 2, np.uint16)
+    u[1::2] = np.arange(1 << 16, dtype=np.uint16)
+    u[0::2] = np.resize(SPECIALS, 1 << 16)
+    x = torch.from_numpy(u.view(np.int16).reshape(-1, LANES)).to(device)
+    return x.to(torch.int32) if dtype == torch.int32 else x.view(dtype)
 
 
 def stage_ops(dtype, reps: int, n_el: int) -> int:
     """Operations on the card's 32-bit integer lanes that `reps` stages over
     n_el elements need, for every lane type: one minimum or maximum an
-    element a stage (int32 one a lane; 16 bits a packed minimum and a packed
-    maximum a word of two elements). The stage kernel issues more for 16
-    bits (SASS, `kernel_times.py --sass`): a byte permute that merges the
-    two results a word, and one more where the roll s = 1 + (r & 3) is odd
-    (the partner pair then straddles two words), 7/4 an element a stage;
-    bfloat16 adds its NaN rule. Those are the formulation's cost, not the
-    function's, and are not counted."""
+    element a stage (int32 one a lane, bfloat16 one a lane on its 32-bit
+    code; uint16 and int16 a packed minimum and a packed maximum a word of
+    two elements). The stage kernel issues more for uint16 and int16 (SASS,
+    `kernel_times.py --sass`): a byte permute that merges the two results a
+    word, and one more where the roll s = 1 + (r & 3) is odd (the partner
+    pair then straddles two words), 7/4 an element a stage; bfloat16 adds
+    its encoding at the load and decoding at the store, once a row. Those
+    are the formulation's cost, not the function's, and are not counted."""
     return reps * n_el
 
 
@@ -352,7 +393,8 @@ def sort_lines(device="cuda", seed=0) -> list[dict]:
 
 def check(device="cuda", seed=0) -> int:
     """Hold P9 against :func:`stage_plain`, every dtype at reps 0, 1, 16,
-    256 and an odd count, and P8 against :func:`cummax_plain` on
+    256 and an odd count on :func:`random_rows`, and at reps 1, 2, 7 and
+    256 on :func:`all_pattern_rows`; and P8 against :func:`cummax_plain` on
     :func:`cummax_inputs` of one element to 2^24 (a partial last tile, one
     whole tile and one more element among them) and on the chain's edges
     (``explore_scan.chain_edge_inputs`` at each of ``CHAIN_EDGE_TILES``, a
@@ -365,6 +407,11 @@ def check(device="cuda", seed=0) -> int:
         for reps in (0, 1, 7, *RATE_REPS):
             if not torch.equal(stage_kernel(x, reps).view(view), stage_plain(x, reps).view(view)):
                 raise AssertionError(f"P9 {dtype} differs from its plain version at reps {reps}")
+        x = all_pattern_rows(dtype, dev)
+        for reps in ALL_PATTERN_REPS:
+            if not torch.equal(stage_kernel(x, reps).view(view), stage_plain(x, reps).view(view)):
+                raise AssertionError(f"P9 {dtype} differs from its plain version on every "
+                                     f"pattern at reps {reps}")
     for n in (1, 5000, CHAIN_TILE, CHAIN_TILE + 1, 100_003, N16):
         for x in cummax_inputs(n, seed + n, dev):
             if not torch.equal(cummax_1d(x), cummax_plain(x)):

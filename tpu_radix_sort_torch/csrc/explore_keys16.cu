@@ -7,36 +7,43 @@
 // x <- min(x, p) at even lanes l, max(x, p) at odd ones; for int32, uint16,
 // int16 and bfloat16 rows of 128.
 //
-// A thread holds one whole row in registers: 128 int32, or 64 words of two
-// 16-bit elements (element 2k in the low half of word k). The roll is then a
-// choice of register, fixed at compile time, and a stage is pure ALU work:
-// one min or max an element for int32; for 16 bits, one packed minimum and
-// one packed maximum a word (__vminu2/__vmaxu2 for uint16, __vmins2/
-// __vmaxs2 for int16, __hmin2_nan/__hmax2_nan for bfloat16), merged by one
-// byte permute, plus one more to realign the partner when s is odd (the
-// partner pair then straddles two words). A row is updated in place from
-// its last element down, with the words that wrap saved first.
+// A thread holds one whole row in registers. The roll is then a choice of
+// register, fixed at compile time, and a stage is pure ALU work.
+// - int32: 128 registers, one min or max an element.
+// - uint16, int16: 64 words of two elements (element 2k in the low half of
+//   word k), one packed minimum and one packed maximum a word (__vminu2/
+//   __vmaxu2, __vmins2/__vmaxs2), merged by one byte permute, plus one more
+//   to realign the partner when s is odd (the partner pair then straddles
+//   two words). A row is updated in place from its last element down, with
+//   the words that wrap saved first.
+// - bfloat16: widened to one 32-bit code an element, 128 registers, and run
+//   through the int32 stage with a signed minimum at even lanes and an
+//   unsigned maximum at odd ones: one min or max an element, as int32.
 //
 // bfloat16 follows what the JAX package computes for these rows on the CPU
 // (measured in Pallas interpret mode): subnormals count as zero of their
 // sign, -0 < +0, and a NaN operand gives NaN: for the minimum 0x7FC0 if any
 // NaN operand is positive, else 0xFFC0; for the maximum 0xFFC0 if any is
-// negative, else 0x7FC0. The kernel flushes subnormals and makes each NaN
-// 0x7FC0 or 0xFFC0 (by its sign) at the load when reps > 0; a stage then
-// takes the card's NaN-propagating minimum and maximum and, in the halves
-// where an operand is NaN, the unsigned minimum (maximum) of the NaN
-// operands' patterns.
+// negative, else 0x7FC0. So the minimum puts NaNs below every number and
+// +NaN below -NaN; the maximum puts NaNs above every number and -NaN above
+// +NaN. Neither the card's float order nor a 16-bit integer order gives
+// both. One 32-bit code does, taken signed for the minimum and unsigned for
+// the maximum: the NaNs get the two codes with the top bit set, +NaN
+// 0x80000000 and -NaN 0x80000001, and every number x its total-order code
+// x ^ (x & 0x8000 ? 0xFFFF : 0x8000), 0..0xFFFF, where -0 (0x7FFF) is below
+// +0 (0x8000). (In 16 bits that would leave 15 bits for the 65,028 numbers
+// that remain after the subnormal flush: they do not fit.) When reps > 0
+// the kernel flushes subnormals, makes each NaN 0x7FC0 or 0xFFC0 by its
+// sign and encodes at the load, and decodes at the store; reps = 0 copies
+// the row untouched.
 //
 // Bound on this card: the rows read once and written once at 3.35 TB/s
 // (0.0100 ms for int32, 0.0050 ms for 16 bits, 2^22 elements), or the
 // stage operations: one an element a stage, above the bytes bound from
 // about 16 stages on. The design keeps every stage in registers, so at
 // reps = 256 the time is the ALU's.
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
-
-#include <cstring>
 
 namespace {
 
@@ -45,8 +52,22 @@ constexpr int kWords = kLanes / 2;  // 16-bit rows: 64 words
 constexpr int kThreads = 128;
 enum { kI32 = 0, kU16 = 1, kI16 = 2, kBF16 = 3 };
 
-// ---- int32: one element a register -----------------------------------------
-template <int S>
+// ---- 32-bit lanes: one element a register ---------------------------------
+// The int32 order at both lanes.
+struct MinMaxI32 {
+  static __device__ __forceinline__ int lo(int a, int b) { return min(a, b); }
+  static __device__ __forceinline__ int hi(int a, int b) { return max(a, b); }
+};
+
+// bfloat16 codes: signed at the minimum, unsigned at the maximum.
+struct MinMaxBF16Code {
+  static __device__ __forceinline__ int lo(int a, int b) { return min(a, b); }
+  static __device__ __forceinline__ int hi(int a, int b) {
+    return (int)max((unsigned)a, (unsigned)b);
+  }
+};
+
+template <int S, class Op>
 __device__ __forceinline__ void stage32(int (&v)[kLanes]) {
   int tail[S];
 #pragma unroll
@@ -54,8 +75,22 @@ __device__ __forceinline__ void stage32(int (&v)[kLanes]) {
 #pragma unroll
   for (int l = kLanes - 1; l >= 0; --l) {
     const int p = l >= S ? v[l >= S ? l - S : 0] : tail[l < S ? l : 0];
-    v[l] = (l & 1) ? max(v[l], p) : min(v[l], p);
+    v[l] = (l & 1) ? Op::hi(v[l], p) : Op::lo(v[l], p);
   }
+}
+
+template <class Op>
+__device__ __forceinline__ void stages32(int (&v)[kLanes], int reps) {
+  int r = 0;
+  for (; r + 4 <= reps; r += 4) {
+    stage32<1, Op>(v);
+    stage32<2, Op>(v);
+    stage32<3, Op>(v);
+    stage32<4, Op>(v);
+  }
+  if (r < reps) stage32<1, Op>(v);
+  if (r + 1 < reps) stage32<2, Op>(v);
+  if (r + 2 < reps) stage32<3, Op>(v);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -68,61 +103,74 @@ stage32_kernel(const int4* __restrict__ in, int4* __restrict__ out, long long ro
     const int4 q = in[row * (kLanes / 4) + k];
     v[4 * k] = q.x, v[4 * k + 1] = q.y, v[4 * k + 2] = q.z, v[4 * k + 3] = q.w;
   }
-  int r = 0;
-  for (; r + 4 <= reps; r += 4) {
-    stage32<1>(v);
-    stage32<2>(v);
-    stage32<3>(v);
-    stage32<4>(v);
-  }
-  if (r < reps) stage32<1>(v);
-  if (r + 1 < reps) stage32<2>(v);
-  if (r + 2 < reps) stage32<3>(v);
+  stages32<MinMaxI32>(v, reps);
 #pragma unroll
   for (int k = 0; k < kLanes / 4; ++k)
     out[row * (kLanes / 4) + k] = make_int4(v[4 * k], v[4 * k + 1], v[4 * k + 2], v[4 * k + 3]);
 }
 
-// ---- 16 bits: two elements a register ---------------------------------------
-__device__ __forceinline__ uint32_t nan2(uint32_t x) {  // 0xFFFF in each NaN half
-  return __vcmpgtu2(x & 0x7FFF7FFFu, 0x7F807F80u);
-}
-
-__device__ __forceinline__ __nv_bfloat162 as_bf2(uint32_t x) {
-  __nv_bfloat162 r;
-  memcpy(&r, &x, 4);
-  return r;
-}
-
-__device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 x) {
-  uint32_t r;
-  memcpy(&r, &x, 4);
-  return r;
-}
-
-// The low half (an even lane) takes the minimum, the high half the maximum.
-template <int KIND>
-__device__ __forceinline__ uint32_t min_max(uint32_t x, uint32_t p) {
-  if constexpr (KIND == kU16) return __byte_perm(__vminu2(x, p), __vmaxu2(x, p), 0x7610);
-  else if constexpr (KIND == kI16) return __byte_perm(__vmins2(x, p), __vmaxs2(x, p), 0x7610);
-  else {
-    const uint32_t r = __byte_perm(as_u32(__hmin2_nan(as_bf2(x), as_bf2(p))),
-                                   as_u32(__hmax2_nan(as_bf2(x), as_bf2(p))), 0x7610);
-    const uint32_t nx = nan2(x), np = nan2(p), any = nx | np;
-    // a number stands in as the NaN that loses: 0xFFC0 for the minimum,
-    // 0x7FC0 for the maximum
-    const uint32_t xa = (x & nx) | (0x7FC0FFC0u & ~nx), pa = (p & np) | (0x7FC0FFC0u & ~np);
-    const uint32_t nr = __byte_perm(__vminu2(xa, pa), __vmaxu2(xa, pa), 0x7610);
-    return (nr & any) | (r & ~any);
-  }
-}
-
+// ---- bfloat16: one code an element -----------------------------------------
 // Subnormals to zero of their sign; NaN to 0x7FC0 or 0xFFC0 by its sign.
 __device__ __forceinline__ uint32_t canonical_bf16(uint32_t x) {
   const uint32_t tiny = __vcmpeq2(x & 0x7F807F80u, 0u);
   x = (x & ~tiny) | (x & 0x80008000u & tiny);
-  const uint32_t nan = nan2(x);
+  const uint32_t nan = __vcmpgtu2(x & 0x7FFF7FFFu, 0x7F807F80u);
   return (x & ~nan) | (((x & 0x80008000u) | 0x7FC07FC0u) & nan);
+}
+
+// A canonical pattern (in the low 16 bits) -> its code.
+__device__ __forceinline__ int bf16_code(uint32_t h) {
+  const uint32_t sign = h >> 15;
+  if ((h & 0x7FFFu) > 0x7F80u) return (int)(0x80000000u | sign);
+  return (int)(h ^ (sign ? 0xFFFFu : 0x8000u));
+}
+
+// A code -> its pattern (in the low 16 bits).
+__device__ __forceinline__ uint32_t bf16_decode(int c) {
+  const uint32_t u = (uint32_t)c;
+  if (c < 0) return 0x7FC0u | ((u & 1u) << 15);
+  return u ^ ((u & 0x8000u) ? 0x8000u : 0xFFFFu);
+}
+
+__global__ void __launch_bounds__(kThreads)
+stage_bf16_kernel(const uint4* __restrict__ in, uint4* __restrict__ out, long long rows,
+                  int reps) {
+  const long long row = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (row >= rows) return;
+  if (reps == 0) {
+#pragma unroll
+    for (int k = 0; k < kWords / 4; ++k) out[row * (kWords / 4) + k] = in[row * (kWords / 4) + k];
+    return;
+  }
+  int v[kLanes];
+#pragma unroll
+  for (int k = 0; k < kWords / 4; ++k) {
+    const uint4 q = in[row * (kWords / 4) + k];
+    const uint32_t w[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const uint32_t c = canonical_bf16(w[j]);
+      v[8 * k + 2 * j] = bf16_code(c & 0xFFFFu);
+      v[8 * k + 2 * j + 1] = bf16_code(c >> 16);
+    }
+  }
+  stages32<MinMaxBF16Code>(v, reps);
+#pragma unroll
+  for (int k = 0; k < kWords / 4; ++k) {
+    uint32_t w[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      w[j] = bf16_decode(v[8 * k + 2 * j]) | (bf16_decode(v[8 * k + 2 * j + 1]) << 16);
+    out[row * (kWords / 4) + k] = make_uint4(w[0], w[1], w[2], w[3]);
+  }
+}
+
+// ---- 16 bits: two elements a register ---------------------------------------
+// The low half (an even lane) takes the minimum, the high half the maximum.
+template <int KIND>
+__device__ __forceinline__ uint32_t min_max(uint32_t x, uint32_t p) {
+  if constexpr (KIND == kU16) return __byte_perm(__vminu2(x, p), __vmaxu2(x, p), 0x7610);
+  else return __byte_perm(__vmins2(x, p), __vmaxs2(x, p), 0x7610);
 }
 
 // One stage on a row of packed words, from word 63 down: the partner of
@@ -154,10 +202,6 @@ stage16_kernel(const uint4* __restrict__ in, uint4* __restrict__ out, long long 
   for (int k = 0; k < kWords / 4; ++k) {
     const uint4 q = in[row * (kWords / 4) + k];
     w[4 * k] = q.x, w[4 * k + 1] = q.y, w[4 * k + 2] = q.z, w[4 * k + 3] = q.w;
-  }
-  if (KIND == kBF16 && reps > 0) {
-#pragma unroll
-    for (int k = 0; k < kWords; ++k) w[k] = canonical_bf16(w[k]);
   }
   int r = 0;
   for (; r + 4 <= reps; r += 4) {
@@ -196,7 +240,7 @@ int trs_keys16_stage(const void* in, void* out, long long rows, int reps, int ki
       stage16_kernel<kI16><<<blocks, kThreads, 0, s>>>((const uint4*)in, (uint4*)out, rows, reps);
       break;
     default:
-      stage16_kernel<kBF16><<<blocks, kThreads, 0, s>>>((const uint4*)in, (uint4*)out, rows, reps);
+      stage_bf16_kernel<<<blocks, kThreads, 0, s>>>((const uint4*)in, (uint4*)out, rows, reps);
   }
   return cudaGetLastError();
 }
