@@ -32,8 +32,18 @@ max among them, each byte-checked against ``torch.sort``, P8 alone beside
 kernel then held against its plain version byte for byte (the chained
 scans P7 and P8 also at the edges of their clusters, the copy P6 at
 the edges of its chunks, each case 50 times, and P9 also on every 16-bit
-pattern beside the values the lane types disagree on);
-checks every result byte for byte, times the sorts, the scan,
+pattern beside the values the lane types disagree on); then, as a path of
+its own, the mesh phase (``parallel/``, :func:`mesh_phase`): K1's
+merge-tree schedule against its plain version at 2^22, then a world of 4
+gloo ranks spawned on the one card (2^26 u32 key + rank and keys-only
+through ``sort(mesh=)`` with ``method='auto'`` and ``'exchange'``, their K1
+launches a rank against the schedules, ``check_order`` on sorted input,
+``prefix_sum``, ``is_sorted`` and ``disorder_count`` at 2^26, u64 key + rank,
+``sort_segments`` and ``sort_batched`` at 2^24, the exchange at D = 3, the
+layout case at 2^20, ``overlap_chunks=4``, ``dryrun_multichip(4)``) and a
+world of 1 NCCL rank (both strategies at 2^20), every rank's shard of each
+result held against the single-device sort on the card and the numpy
+golden; checks every result byte for byte, times the sorts, the scan,
 each kernel, its plain version and ``torch.sort``/``torch.cumsum`` (K1's
 replayed calls each the median of several, its tile calls split into
 phase 1 and the mean merge tail, the row-local network (the batched
@@ -60,6 +70,10 @@ beside a device ``copy_`` of the same columns), and prints:
 - one JSON line ``{"keys16_stage_design": {...}}``: P9 for each lane type
   at 16 and 256 stages, its time, bound, what sets the bound and the share
   of the bound reached, and each time over int32's;
+- one line a case of the mesh phase (each rank's launches, bytes sent and
+  received, wall, device time between collectives and collective time;
+  four processes share the card: not multi-GPU times) and one JSON line
+  ``{"mesh": {...}}``;
 - one JSON line ``{"kernels": [...]}``;
 - last, ``{"ok": true, "device": {...}}``.
 
@@ -1189,6 +1203,14 @@ def run(dev) -> None:
         rows[name] = dict(ms=r["ms"], plain_ms=r["plain_ms"], bytes=n_bytes, ops=r["n"],
                           library_ms=r["library_ms"])
 
+    # ---- the mesh phase: its own counts, in its own processes --------------
+    mesh_counts, mesh_err = mesh_phase(dev)
+    for name, e in mesh_err.items():
+        max_err[name] = max(max_err[name], e)
+    print(f"launches mesh path (all ranks): {json.dumps(mesh_counts)}", flush=True)
+    for name in MESH_KERNELS:
+        check(mesh_counts[name] > 0, f"{name} launched on the mesh path ({mesh_counts[name]})")
+
     # checked last, so that a run that fails it still prints its times
     new_k1 = {(str(a), str(k)) for a, k in NEW_K1}
     spilled = {f"{a},{k}": b for (a, k), b in tile_spills.items()
@@ -1223,7 +1245,8 @@ def run(dev) -> None:
             "name": k.name, "route": "cuda",
             "source": f"tpu_radix_sort_torch/csrc/{k.source}.cu",
             "replaces": REPLACES[k.name],
-            "launches": main_counts[k.name] + slice_counts[k.name] + probe_counts[k.name],
+            "launches": (main_counts[k.name] + slice_counts[k.name] + probe_counts[k.name]
+                         + mesh_counts[k.name]),
             "max_abs_err": max_err[k.name],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": r["library_ms"],
@@ -1257,8 +1280,464 @@ def run(dev) -> None:
     print(json.dumps({"batched_segmented": slice_rows,
                       "launches_by_path": {"flat sort": main_counts,
                                            "batched and segmented": slice_counts,
-                                           "probes": probe_counts}}))
+                                           "probes": probe_counts,
+                                           "mesh (all ranks)": mesh_counts}}))
     print(json.dumps({"kernels": kernels}))
+
+
+
+# ---- the mesh phase: parallel/ over torch.distributed ------------------------
+# NCCL refuses two ranks of one communicator on one card, so the phase runs
+# two worlds, spawned after the kernels are built: 4 gloo ranks that all use
+# cuda:0 (each rank's kernels run on the card; its collectives cross through
+# the host, comm.py's gloo staging), and 1 NCCL rank (comm.py's NCCL branch
+# on device tensors). Their times are not multi-GPU times: four processes
+# share one card and cross through the host.
+MESH_RANKS = 4
+MESH_SIZES = {
+    "full": HEADLINE_N,  # 2^26 u32 key + iota rank, 2^24 a rank
+    "wide": SLICE_N,  # u64 key + rank
+    "seg": SLICE_N, "segs": 4096,  # benchmarks/workloads.py:236-259
+    "rows": 1024, "row": SLICE_N // 1024,
+    "d3": OPTION_N,  # the exchange at D = 3, Zipf keys
+    "layout": 1 << 20,
+    "overlap": OPTION_N,
+    "nccl": 1 << 20,
+    "merge_tree": OPTION_N,
+}
+MESH_GROUP_TIMEOUT_S = 600  # a stuck collective fails the rank
+MESH_JOIN_TIMEOUT_S = 800
+MESH_KERNELS = ("bitonic_tile_kernel", "bitonic_global_stage_kernel", "disorder_kernel",
+                "disorder_cols_kernel", "scan_kernel")
+
+
+def k1_calls(calls):
+    """(tile calls, global calls) of a K1 schedule: one launch each."""
+    return (sum(c[0] == "tile" for c in calls), sum(c[0] == "global" for c in calls))
+
+
+def merge_tree_check(dev, n):
+    """K1 on the exchange's merge-tree schedule against its plain version:
+    3 columns (key, unique tie, payload) of n, runs of 2^16 and 2^10 in the
+    alternating state, every call of ``merge_tree_schedule`` through the
+    kernel and through ``stages_plain`` on the same input. Returns the
+    largest difference of each K1 kernel."""
+    import torch
+
+    from tpu_radix_sort_torch.ops import bitonic
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 1)
+    err = {"bitonic_tile_kernel": 0, "bitonic_global_stage_kernel": 0}
+    tile = bitonic.resolve_tile(n, 3)
+    for run in (1 << 16, 1 << 10):
+        x = torch.stack([torch.randint(0, 1 << 12, (n,), dtype=torch.int32, device=dev,
+                                       generator=gen),
+                         torch.randperm(n, device=dev, generator=gen).to(torch.int32),
+                         torch.randint(-2**31, 2**31, (n,), dtype=torch.int32, device=dev,
+                                       generator=gen)])
+        # the state after round k = run: runs sorted in alternating directions
+        bitonic.stages_plain(x, bitonic._block_stages(2, run), 2)
+        calls = bitonic.merge_tree_schedule(n, run, tile)
+        for call in calls:
+            got = bitonic.run_schedule(x.clone(), [call], n_keys=2, tile=tile)
+            stages = call[1] if call[0] == "tile" else [call[1:]]
+            want = bitonic.stages_plain(x.clone(), stages, 2)
+            name = "bitonic_tile_kernel" if call[0] == "tile" else "bitonic_global_stage_kernel"
+            err[name] = max(err[name], u32_err(got, want))
+            x = got
+        keys = x[:2].cpu().numpy().view(np.uint32)
+        check(max(err.values()) == 0 and np.array_equal(np.lexsort(keys[::-1]), np.arange(n)),
+              f"merge_tree_padded, n {n}, 3 columns, run {run}, tile {tile}: "
+              f"{k1_calls(calls)} (tile, global) K1 calls == stages_plain, and sorted")
+    return err
+
+
+def _mesh_rank(rank, world, backend, init, out_dir, sizes, device):
+    """One rank of a mesh world: drives the mesh paths, checks its shard of
+    every result against the same slice of the single-device sort of the
+    global array on the card and of the numpy golden (every rank makes the
+    global inputs from the seed; rank 0 holds the card's result against the
+    golden in full), checks the launch counts, and writes its records to
+    ``mesh_rank<r>.json``. Any failed check raises."""
+    from datetime import timedelta
+
+    import torch
+    import torch.distributed as dist
+
+    import tpu_radix_sort_torch as trt
+    from tpu_radix_sort_torch import _build
+    from tpu_radix_sort_torch.models.golden import golden_is_sorted, golden_prefix_sum, golden_sort
+    from tpu_radix_sort_torch.ops import bitonic
+    from tpu_radix_sort_torch.parallel import comm, dryrun, sharded
+    from tpu_radix_sort_torch.parallel.mesh_sort import shard_length
+
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.set_device(dev.index or 0)
+    dist.init_process_group(backend, init_method=f"file://{init}", rank=rank,
+                            world_size=world, timeout=timedelta(seconds=MESH_GROUP_TIMEOUT_S),
+                            **({"device_id": torch.device("cuda", torch.cuda.current_device())}
+                               if backend == "nccl" else {}))
+    mesh = dryrun.mesh_over(range(world))
+    mesh3 = dryrun.mesh_over(range(3)) if world >= 3 else None
+    group = mesh.get_group("x")
+    comm.STATS.synchronize = True
+    records = []
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 2)
+
+    def lead(msg):
+        if rank == 0:
+            print(f"mesh {backend} x{world}: {msg}", flush=True)
+
+    def agree(ok, what, grp=group):
+        """A check that every rank of `grp` passes, or all raise."""
+        bad = int(comm.psum(torch.tensor([0 if ok else 1], device=dev), grp)[0])
+        if bad:
+            raise CheckFailed(f"{bad} rank(s) failed: {what}")
+        lead(f"check ok: {what}")
+
+    def measure(label, fn, grp=group):
+        # the ranks start together: one may have spent seconds on the golden
+        dist.barrier(grp)
+        if cuda:
+            torch.cuda.synchronize()
+            ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        _build.reset_launches()
+        comm.STATS.reset()
+        t0 = time.perf_counter()
+        if cuda:
+            ev[0].record()
+        out = fn()
+        if cuda:
+            ev[1].record()
+            torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        counts = _build.launch_counts()
+        rec = {"label": label, "launches": {k: counts[k] for k in MESH_KERNELS},
+               **comm.STATS.as_dict(), "wall_ms": wall_ms}
+        if cuda:
+            coll = sum(a.elapsed_time(b) for a, b in comm.STATS.events)
+            rec.update(span_ms=ev[0].elapsed_time(ev[1]), collective_event_ms=coll,
+                       kernel_ms=ev[0].elapsed_time(ev[1]) - coll)
+        records.append(rec)
+        return out
+
+    def rand_u32(n, hi=None):
+        lo, hi = (-2**31, 2**31) if hi is None else (0, hi)
+        return torch.randint(lo, hi, (n,), dtype=torch.int32, device=dev,
+                             generator=gen).view(torch.uint32)
+
+    def iota(n):
+        return torch.arange(n, dtype=torch.int32, device=dev).view(torch.uint32)
+
+    def same_slice(got, ref, lengths=None, m=mesh):
+        """This rank's shard of a result against the same slice of `ref`
+        (a tensor on the card or a numpy array, of the global result)."""
+        got = got if isinstance(got, tuple) else (got,)
+        ref = ref if isinstance(ref, tuple) else (ref,)
+        me, d = m.get_local_rank("x"), m.size(0)
+        n = len(ref[0])
+        lens = lengths or [shard_length(n, d, r) for r in range(d)]
+        lo = sum(lens[:me])
+        for g, r in zip(got, ref):
+            r = r[lo:lo + lens[me]]
+            if isinstance(r, np.ndarray):
+                g = g.cpu().numpy()
+                if g.dtype != r.dtype or not np.array_equal(g.view(np.uint8), r.view(np.uint8)):
+                    return False
+            elif not same(g, r):
+                return False
+        return True
+
+    def golden_ok(ref, want_fn):
+        """Rank 0: the card's single-device result against the golden,
+        ``want_fn()``; the other ranks pass."""
+        if rank != 0:
+            return True
+        ref = ref if isinstance(ref, tuple) else (ref,)
+        want = want_fn()
+        want = want if isinstance(want, tuple) else (want,)
+        return all(np.array_equal(r.cpu().numpy().view(np.uint8), w.view(np.uint8))
+                   for r, w in zip(ref, want))
+
+    def expect_k1(label, want):
+        rec = next(r for r in records if r["label"] == label)
+        got = (rec["launches"]["bitonic_tile_kernel"],
+               rec["launches"]["bitonic_global_stage_kernel"])
+        agree(got == want, f"{label}: K1 launches a rank (tile, global) {got} == {want}")
+
+    # the first collective sets up the communicator; the first sort loads
+    # the kernels and grows the allocator: neither is timed
+    comm.all_gather(torch.zeros(1, device=dev), group)
+    if world == 1:
+        n = sizes["nccl"]
+        keys, vals = rand_u32(n), iota(n)
+        trt.mesh_sort(keys, vals, mesh=mesh)
+        ref = trt.sort(keys, vals, values_are_ranks=True)
+        gold = golden_ok(ref, lambda: golden_sort(keys.cpu().numpy(), vals.cpu().numpy()))
+        for method in ("mesh", "exchange"):
+            fn = trt.mesh_sort if method == "mesh" else trt.exchange_sort
+            out = measure(f"{backend} {method}_sort k+v", lambda: fn(keys, vals, mesh=mesh))
+            agree(gold and same_slice(out, ref) and comm.STATS.calls > 0,
+                  f"{method}_sort over one {backend} rank, {n} u32 key + value, through "
+                  f"comm.py's {backend} branch ({comm.STATS.calls} collectives) == the "
+                  f"single-device sort == golden")
+    else:
+        n = sizes["full"]
+        per = n // world
+        keys, ranks = rand_u32(n), iota(n)
+        k, v = sharded(mesh, "x", keys), sharded(mesh, "x", ranks)
+        ref = trt.sort(keys, ranks, values_are_ranks=True)
+        gold = golden_ok(ref, lambda: golden_sort(keys.cpu().numpy(), ranks.cpu().numpy()))
+        lead(f"global 2^{n.bit_length() - 1} u32 key + rank, {per} a rank")
+        for method in ("mesh", "exchange"):
+            trt.sort(k, v, mesh=mesh, method=method)
+        for method in ("auto", "exchange"):
+            out = measure(f"{method} k+rank", lambda: trt.sort(k, v, mesh=mesh, method=method,
+                                                               values_are_ranks=True))
+            agree(gold and same_slice(out, ref),
+                  f"sort(mesh=, method='{method}'), {n} u32 key + rank over {world} ranks "
+                  f"== the single-device sort == golden")
+            out = measure(f"{method} keys-only", lambda: trt.sort(k, mesh=mesh, method=method))
+            agree(gold and same_slice(out, ref[0]),
+                  f"sort(mesh=, method='{method}'), {n} u32 keys-only == the single-device "
+                  f"sort == golden")
+        # the local sort and 3 compare-splits of one merge each at D = 4; the
+        # exchange: the local sort and the merge tree of the slotted branch
+        for cols, kind in ((3, "k+rank"), (2, "keys-only")):
+            t = bitonic.resolve_tile(per, cols)
+            local = k1_calls(bitonic.sort_schedule(per, t))
+            merge = k1_calls(bitonic.merge_schedule(per, t))
+            splits = (world.bit_length() - 1) * world.bit_length() // 2
+            expect_k1(f"auto {kind}", (local[0] + splits * merge[0],
+                                       local[1] + splits * merge[1]))
+            slot = 2 * per // world
+            tree = k1_calls(bitonic.merge_tree_schedule(
+                2 * per, slot, bitonic.resolve_tile(2 * per, cols)))
+            expect_k1(f"exchange {kind}", (local[0] + tree[0], local[1] + tree[1]))
+        sk, sv = sharded(mesh, "x", ref[0]), sharded(mesh, "x", ref[1])
+        out = measure("check_order sorted", lambda: trt.sort(sk, sv, mesh=mesh,
+                                                             check_order=True))
+        rec = records[-1]["launches"]
+        agree(same_slice(out, ref) and rec["bitonic_tile_kernel"] == 0
+              and rec["bitonic_global_stage_kernel"] == 0 and rec["disorder_kernel"] >= 1,
+              f"check_order=True on the sorted {n}: K2 gates ({rec['disorder_kernel']} "
+              f"launches a rank), K1 does not run, output unchanged")
+        del out, sk, sv
+
+        scanned = measure("prefix_sum", lambda: trt.prefix_sum(k, mesh=mesh))
+        ref_scan = trt.prefix_sum(keys)
+        gold_scan = golden_ok(ref_scan, lambda: golden_prefix_sum(keys.cpu().numpy()))
+        agree(gold_scan and same_slice(scanned, ref_scan)
+              and records[-1]["launches"]["scan_kernel"] == 1,
+              f"prefix_sum(mesh=), {n} u32: one K4 launch a rank, == the single-device scan "
+              f"== golden")
+        del scanned, ref_scan
+        sorted_shard = sharded(mesh, "x", ref[0])
+        for label, x, g in (("sorted", sorted_shard, ref[0]), ("unsorted", k, keys)):
+            s_ok = measure(f"is_sorted {label}", lambda: trt.is_sorted(x, mesh=mesh))
+            d_ct = measure(f"disorder_count {label}", lambda: trt.disorder_count(x, mesh=mesh))
+            want_d = int(trt.disorder_count(g))
+            good = s_ok == trt.is_sorted(g) and int(d_ct) == want_d
+            if rank == 0:
+                gn = g.cpu().numpy()
+                good = (good and golden_is_sorted(gn) == s_ok
+                        and int(np.sum(gn[:-1] > gn[1:])) == want_d)
+            agree(good, f"is_sorted / disorder_count(mesh=) of the {label} {n} ({s_ok}, "
+                  f"{int(d_ct)}) == single-device == golden")
+        del keys, ranks, k, v, ref, sorted_shard
+
+        n = sizes["wide"]
+        keys64 = torch.randint(-2**63, 2**63 - 1, (n,), dtype=torch.int64, device=dev,
+                               generator=gen)
+        keys64[: n // 2] = (keys64[: n // 2] & 0xFFFF) | (7 << 32)  # shared hi words
+        keys64 = keys64.view(torch.uint64)
+        r64 = iota(n)
+        ref = trt.sort(keys64, r64, values_are_ranks=True)
+        gold = golden_ok(ref, lambda: golden_sort(keys64.cpu().numpy(), r64.cpu().numpy()))
+        k, v = sharded(mesh, "x", keys64), sharded(mesh, "x", r64)
+        for method in ("mesh", "exchange"):
+            out = measure(f"u64 {method} k+rank", lambda: trt.sort(k, v, mesh=mesh,
+                                                                   method=method))
+            agree(gold and same_slice(out, ref),
+                  f"sort(mesh=, method='{method}'), {n} u64 key + rank == the single-device "
+                  f"sort == golden")
+        s_ok = measure("u64 is_sorted", lambda: trt.is_sorted(out[0], mesh=mesh))
+        agree(s_ok and records[-1]["launches"]["disorder_cols_kernel"] >= 1,
+              "is_sorted(mesh=) of the sorted u64 keys: K3 on every rank")
+        del keys64, r64, ref, k, v, out
+
+        n, segs = sizes["seg"], sizes["segs"]
+        nrng = np.random.default_rng(SEED)
+        w = nrng.zipf(1.3, segs).astype(np.float64)
+        seg_sizes = nrng.multinomial(n - segs, w / w.sum()).astype(np.int64) + 1
+        offs = np.concatenate([[0], np.cumsum(seg_sizes)])
+        keys = rand_u32(n)
+        ref = trt.sort_segments(keys, torch.from_numpy(offs).to(dev))
+        kn = keys.cpu().numpy() if rank == 0 else None
+        gold = golden_ok(ref, lambda: kn[np.lexsort((kn, np.repeat(np.arange(segs),
+                                                                    seg_sizes)))])
+        out = measure("sort_segments", lambda: trt.sort_segments(
+            sharded(mesh, "x", keys), offs, mesh=mesh))
+        rec = records[-1]["launches"]
+        agree(gold and same_slice(out, ref) and rec["scan_kernel"] >= 1,
+              f"sort_segments(mesh=), {n} u32, S = {segs} Zipf segments (K4 {rec['scan_kernel']}"
+              f" launches a rank) == the single-device sort == golden")
+        del keys, ref, out
+
+        rows, row = sizes["rows"], sizes["row"]
+        kb = rand_u32(rows * row).view(rows, row)
+        ref = trt.sort_batched(kb)
+        gold = golden_ok(ref, lambda: np.sort(kb.cpu().numpy(), axis=1))
+        out = measure("sort_batched", lambda: trt.sort_batched(sharded(mesh, "x", kb),
+                                                               mesh=mesh))
+        agree(gold and same_slice(out, ref) and records[-1]["calls"] == 0,
+              f"sort_batched(mesh=), {rows} x {row} u32: no collective, == the single-device "
+              f"sort == golden")
+        del kb, ref, out
+
+        n = sizes["d3"]
+        zk = torch.from_numpy(np.random.default_rng(SEED).zipf(1.3, n).astype(np.uint32)).to(dev)
+        zv = iota(n)
+        if mesh3 is not None:
+            ref = trt.sort(zk, zv, values_are_ranks=True)
+            gold = golden_ok(ref, lambda: golden_sort(zk.cpu().numpy(), zv.cpu().numpy()))
+            out = measure("exchange D=3 zipf", lambda: trt.exchange_sort(
+                sharded(mesh3, "x", zk), sharded(mesh3, "x", zv), mesh=mesh3),
+                grp=mesh3.get_group("x"))
+            agree(gold and same_slice(out, ref, m=mesh3),
+                  f"exchange_sort at D = 3, {n} Zipf u32 key + rank == the single-device "
+                  f"sort == golden", grp=mesh3.get_group("x"))
+            del ref, out
+        dist.barrier()
+
+        n = sizes["layout"]
+        cnt = n - 5  # not a multiple of 4
+        lengths = [n // 2 + 3, 0, n // 4 - 1, n - (n // 2 + 3) - (n // 4 - 1)]
+        lk = rand_u32(n)
+        lk.view(torch.int32)[::7] = -1  # real all-ones keys on every shard, beside the pads
+        lv = iota(n)
+        me = mesh.get_local_rank("x")
+        lo = sum(lengths[:me])
+        pk, pv = lk[lo:lo + lengths[me]], lv[lo:lo + lengths[me]]
+        ref = trt.sort(lk, lv, count=cnt, values_are_ranks=True)
+        gold = golden_ok(ref, lambda: golden_sort(lk.cpu().numpy(), lv.cpu().numpy(),
+                                                    count=cnt))
+        for method in ("mesh", "exchange"):
+            out = measure(f"layout {method}", lambda: trt.sort(pk, pv, mesh=mesh, count=cnt,
+                                                               method=method))
+            agree(gold and same_slice(out, ref, lengths),
+                  f"layout: {n} u32 with real 0xFFFFFFFF keys, count {cnt}, shards {lengths}, "
+                  f"sort(mesh=, method='{method}') == the single-device sort == golden")
+        del lk, lv, pk, pv, ref, out
+
+        n = sizes["overlap"]
+        ok_, ov = rand_u32(n, 1 << 12), iota(n)
+        ref = trt.sort(ok_, ov, values_are_ranks=True)
+        gold = golden_ok(ref, lambda: golden_sort(ok_.cpu().numpy(), ov.cpu().numpy()))
+        out = measure("mesh overlap_chunks=4", lambda: trt.mesh_sort(
+            sharded(mesh, "x", ok_), sharded(mesh, "x", ov), mesh=mesh, overlap_chunks=4))
+        agree(gold and same_slice(out, ref),
+              f"mesh_sort(overlap_chunks=4), {n} u32 key + rank == the single-device sort "
+              f"== golden")
+        del ok_, ov, ref, out
+
+        measure("dryrun_multichip(4)", lambda: dryrun.dryrun_multichip(world, device=dev))
+        agree(True, f"dryrun_multichip({world}): its 12 checks")
+
+    with open(f"{out_dir}/mesh_rank{rank}.json", "w") as f:
+        json.dump({"rank": rank, "backend": dist.get_backend(group), "world": world,
+                   "records": records}, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _spawn_mesh_world(world, backend, sizes, device, tmp):
+    """Run `world` ranks of :func:`_mesh_rank`; a rank that fails makes the
+    others stop and this raise. Returns every rank's records."""
+    import os
+
+    import torch.multiprocessing as mp
+
+    init = os.path.join(tmp, f"init-{backend}")
+    ctx = mp.start_processes(_mesh_rank, args=(world, backend, init, tmp, sizes, device),
+                             nprocs=world, join=False, start_method="spawn")
+    deadline = time.monotonic() + MESH_JOIN_TIMEOUT_S
+    while not ctx.join(timeout=5):
+        if time.monotonic() > deadline:
+            for p in ctx.processes:
+                p.terminate()
+            raise CheckFailed(f"the {backend} mesh world did not end in {MESH_JOIN_TIMEOUT_S} s")
+    out = []
+    for r in range(world):
+        with open(os.path.join(tmp, f"mesh_rank{r}.json")) as f:
+            out.append(json.load(f))
+        os.remove(os.path.join(tmp, f"mesh_rank{r}.json"))
+    return out
+
+
+def mesh_phase(dev, sizes=MESH_SIZES):
+    """The mesh phase (see above MESH_RANKS): K1's merge tree against its
+    plain version in this process, then the two worlds. Prints each rank's
+    launch counts, bytes and times, and one ``{"mesh": ...}`` JSON line.
+    Returns (the launches of the two worlds summed by kernel, K1's largest
+    differences from the merge-tree check)."""
+    import tempfile
+
+    import torch
+
+    from tpu_radix_sort_torch import _build
+
+    err = merge_tree_check(dev, sizes["merge_tree"])
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()  # the earlier phases' blocks, for the ranks
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True).stdout.strip() if dev.type == "cuda" else "cpu"
+    counts = {k.name: 0 for k in _build.KERNELS}
+    worlds = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for world, backend in ((MESH_RANKS, "gloo"), (1, "nccl" if dev.type == "cuda"
+                                                      else "gloo")):
+            t0 = time.perf_counter()
+            ranks = _spawn_mesh_world(world, backend, sizes, str(dev), tmp)
+            name = f"{backend} x{world}"
+            cases = {}
+            for r in ranks:
+                check(r["backend"] == backend, f"rank {r['rank']} of the {name} world "
+                      f"ran on {r['backend']}")
+                for rec in r["records"]:
+                    for k, c in rec["launches"].items():
+                        counts[k] += c
+                    c = cases.setdefault(rec["label"], {
+                        "ranks": [], "launches": [], "bytes_sent": [], "bytes_received": [],
+                        "collectives": [], "wall_ms": [], "kernel_ms": [], "collective_ms": []})
+                    c["ranks"].append(r["rank"])
+                    c["launches"].append([rec["launches"][k] for k in MESH_KERNELS])
+                    c["bytes_sent"].append(rec["bytes_sent"])
+                    c["bytes_received"].append(rec["bytes_received"])
+                    c["collectives"].append(rec["calls"])
+                    c["wall_ms"].append(rec["wall_ms"])
+                    c["kernel_ms"].append(rec.get("kernel_ms"))
+                    c["collective_ms"].append(rec["seconds"] * 1e3)
+            worlds[name] = {"seconds": time.perf_counter() - t0, "cases": cases}
+            for label, c in cases.items():
+                print(f"mesh {name} {label}, by rank {c['ranks']}: launches (K1 tile, K1 "
+                      f"global, K2, K3, K4) {c['launches']}; bytes sent {c['bytes_sent']}, "
+                      f"received {c['bytes_received']} in {c['collectives']} collectives; wall "
+                      f"ms {c['wall_ms']}; of it device ms between collectives (CUDA events: "
+                      f"kernels, copies, launch gaps) {c['kernel_ms']} and collective ms (host "
+                      f"timer) "
+                      f"{c['collective_ms']} "
+                      f"[{smi}; {world} processes on one card]", flush=True)
+    print(json.dumps({"mesh": {"card": smi, "caveat": "not multi-GPU times: the ranks of each "
+                               "world share one card, and gloo's collectives cross through "
+                               "the host", "launch_order": MESH_KERNELS, "sizes": sizes,
+                               "worlds": worlds}}))
+    return counts, err
 
 
 if __name__ == "__main__":

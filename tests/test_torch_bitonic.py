@@ -202,3 +202,83 @@ def test_row_schedule_four_keys_eight_columns_match_numpy(row_len, tile):
     bitonic.run_schedule(x, calls, n_keys=4, tile=tile)
     order = np.lexsort([c for c in cols[3::-1]] + [np.arange(n) // row_len])
     assert all(np.array_equal(g, c[order]) for g, c in zip(x.numpy().view(np.uint32), cols))
+
+
+@pytest.mark.parametrize("run", [1, 64, 256, 512, 2048, 4096])
+def test_merge_tree_schedule_matches_jax_rounds(monkeypatch, run):
+    """`merge_tree_schedule` runs the rounds that JAX `merge_tree_padded`
+    runs (n = 4,096 at a tile of 512 there and here): one tile call of the
+    rounds 2*run..T when they fit a tile, then one merge round a k up to
+    n; run >= n runs nothing. Its stages are the network's rounds k =
+    2*run..n, in order. JAX's kernel calls are recorded, not run."""
+    n, tile = 4096, 512
+    phase, rounds = [], []
+
+    def record_network(x, stable, stages, **kw):
+        phase.append(list(stages))
+        return x
+
+    def record_round(x, k, **kw):
+        rounds.append(k)
+        return x
+
+    monkeypatch.setattr(jbitonic, "_run_network", record_network)
+    monkeypatch.setattr(jbitonic, "_merge_round", record_round)
+    jbitonic.merge_tree_padded((jnp.zeros(n, jnp.uint32),), run=run, stable=False,
+                               block_rows=tile // 128, interpret=True)
+    calls = bitonic.merge_tree_schedule(n, run, tile)
+    port_phase = [c[1] for c in calls[:1] if c[0] == "tile" and 2 * run <= tile]
+    assert port_phase == phase
+    ks = []
+    for c in calls[len(port_phase):]:
+        k = c[1] if c[0] == "global" else c[1][0][0]
+        if not ks or ks[-1] != k:
+            ks.append(k)
+    assert ks == rounds
+    flat = [s for c in calls for s in ([(c[1], c[2])] if c[0] == "global" else c[1])]
+    want, k = [], 2 * run
+    while k <= n:
+        want += [(k, j) for j in bitonic._halving(k // 2)]
+        k *= 2
+    assert flat == want
+
+
+def _runs_alternating(rng, n, run, n_cols=3):
+    """Columns (key, unique tie, payload) whose runs of `run` are sorted by
+    (key, tie), ascending in even runs and descending in odd ones: the
+    state of a bitonic sort after round k = run."""
+    k = _u32(rng, n, 50)
+    tie = rng.permutation(n).astype(np.uint32)
+    p = _u32(rng, n)
+    cols = np.stack([k, tie, p][:n_cols])
+    for r in range(n // run):
+        sl = slice(r * run, (r + 1) * run)
+        order = np.lexsort((cols[1, sl], cols[0, sl]))
+        cols[:, sl] = cols[:, sl][:, order if r % 2 == 0 else order[::-1]]
+    return cols
+
+
+@pytest.mark.parametrize("run,tile", [(16, 256), (128, 256), (256, 256), (512, 128),
+                                      (1024, 64)])
+def test_merge_tree_padded_matches_sort_padded(run, tile):
+    """Runs below, at and above the tile: the merge tree ends where a full
+    sort of the same columns ends."""
+    rng = np.random.default_rng(run + tile)
+    n = 4096
+    cols = _runs_alternating(rng, n, run)
+    got = _port(list(cols), bitonic.merge_tree_padded, run=run, stable=True, tile=tile)
+    want = _port(list(cols), bitonic.sort_padded, stable=True, tile=tile)
+    order = np.lexsort((cols[1], cols[0]))
+    for g, w, c in zip(got, want, cols):
+        assert np.array_equal(g, w) and np.array_equal(g, c[order])
+
+
+def test_merge_tree_padded_half_is_merge_padded():
+    """run == n/2: [A ascending ++ B descending], one bitonic merge."""
+    rng = np.random.default_rng(9)
+    cols = _runs_alternating(rng, 2048, 1024)
+    got = _port(list(cols), bitonic.merge_tree_padded, run=1024, stable=True, tile=128)
+    want = _port(list(cols), bitonic.merge_padded, stable=True, tile=128)
+    assert all(np.array_equal(g, w) for g, w in zip(got, want))
+    assert bitonic.merge_tree_schedule(2048, 1024, 128) == bitonic.merge_schedule(2048, 128)
+    assert bitonic.merge_tree_schedule(2048, 2048, 128) == []

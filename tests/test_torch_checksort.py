@@ -96,7 +96,7 @@ def test_tiny_inputs_and_errors():
         trt.is_sorted(np.zeros(8, np.uint64), bit_count=68, device="cpu")
     with pytest.raises(ValueError):
         trt.disorder_count(np.zeros(8, np.int16), bit_count=20, device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError):
         trt.disorder_count(np.zeros(8, np.uint32), device="cpu", mesh=object())
     with pytest.raises(TypeError):
         checksort.disorder_kernel(torch.zeros(8, dtype=torch.int64))

@@ -80,7 +80,7 @@ def test_prefix_sum_kernel_class():
     inc = trt.PrefixSumKernel(count=5000, inclusive=True, avoid_bank_conflicts=True,
                               device="cpu")
     assert _same(inc.dispatch(x.view(np.int32)), _inclusive(x.view(np.int32), 5000))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError):
         trt.PrefixSumKernel(count=8, mesh=object())
     with pytest.raises(ValueError):
         trt.PrefixSumKernel(count=-1)
@@ -103,8 +103,8 @@ def test_input_errors_match_jax_types():
         (ValueError, lambda: trt.prefix_sum(np.zeros((2, 2), np.uint32), device="cpu")),
         (ValueError, lambda: trt.prefix_sum(np.zeros(8, np.uint32), count=9, device="cpu")),
         (ValueError, lambda: trt.prefix_sum(np.zeros(8, np.uint32), count=-1, device="cpu")),
-        (NotImplementedError, lambda: trt.prefix_sum(np.zeros(8, np.uint32), device="cpu",
-                                                     mesh=object())),
+        (TypeError, lambda: trt.prefix_sum(np.zeros(8, np.uint32), device="cpu",
+                                           mesh=object())),
         (TypeError, lambda: scan.scan_kernel(torch.zeros(8, dtype=torch.int64))),
         (ValueError, lambda: scan.scan_kernel(torch.zeros((2, 4), dtype=torch.int32))),
     ]

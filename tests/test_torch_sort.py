@@ -232,7 +232,7 @@ def test_input_errors_match_jax_types():
         (ValueError, lambda: trt.sort_packed(np.zeros((4, 3), np.uint32), device="cpu")),
         (ValueError, lambda: trt.sort(np.zeros(8, np.uint16), bit_count=20, device="cpu")),
         (ValueError, lambda: trt.sort(np.zeros(8, np.float64), bit_count=68, device="cpu")),
-        (NotImplementedError, lambda: trt.sort(z, device="cpu", mesh=object())),
+        (TypeError, lambda: trt.sort(z, device="cpu", mesh=object())),
     ]
     for exc, fn in cases:
         with pytest.raises(exc):

@@ -11,6 +11,12 @@ the bitonic network's row-local schedule and a composite (segment, key)
 network whose segment ids come from the scan. Tensors run where they lie; numpy input goes to the
 CUDA card unless ``device=`` says otherwise (bfloat16 crosses as its bits,
 ``utils/interop.py``).
+
+Every entry point that takes ``mesh=`` (a
+``torch.distributed.device_mesh.DeviceMesh``) runs the distributed path of
+``parallel/``: each rank passes its shard, `count` is global, and each
+rank gets its shard of the result. :func:`mesh_sort` and
+:func:`exchange_sort` are the two strategies of the distributed sort.
 """
 from .api import (
     PrefixSumKernel,
@@ -24,6 +30,7 @@ from .ops.checksort import disorder_count, is_sorted
 from .ops.scan import prefix_sum
 from .ops.segmented import argsort_segments, sort_segments
 from .ops.sort import argsort, sort, sort_packed
+from .parallel import exchange_sort, mesh_sort
 
 __version__ = "0.1.0"
 
@@ -43,5 +50,7 @@ __all__ = [
     "RadixSortPackedKernel",
     "RadixSortTextureKernel",
     "PrefixSumKernel",
+    "mesh_sort",
+    "exchange_sort",
     "__version__",
 ]

@@ -37,6 +37,11 @@ class RadixSortKernel:
     (WGSL micro-optimizations the reference ships disabled), and so are the
     JAX package's `block_rows` and `interpret`. `device` is
     where `compile()` warms up: by default the CUDA card.
+
+    With `mesh=` (a ``DeviceMesh``) and `axis_name=`, one instance on each
+    rank is a distributed sort: `count` is global, `dispatch` takes this
+    rank's shard and returns its shard of the result, and `method` is
+    'auto', 'mesh' or 'exchange' (``ops/sort.py`` ``sort``).
     """
 
     def __init__(
@@ -62,7 +67,7 @@ class RadixSortKernel:
         device=None,
     ):
         # accepted, ignored
-        del block_rows, interpret, local_shuffle, avoid_bank_conflicts, axis_name
+        del block_rows, interpret, local_shuffle, avoid_bank_conflicts
         common.check_key_dtype(key_dtype)
         # bit_count defaults to 64 for 64-bit keys, whose range is [4, 64],
         # and to 32 otherwise. As in the JAX class, a 16-bit key_dtype also
@@ -74,8 +79,10 @@ class RadixSortKernel:
             common.validate_bit_count_64(bit_count)
         else:
             common.validate_bit_count(bit_count)
-        sort_ops._resolve_method(method)
-        common.reject_mesh(mesh)
+        if mesh is None:
+            sort_ops._resolve_method(method)
+        else:
+            sort_ops._resolve_mesh_method(method, common.mesh_axis(mesh, axis_name)[1])
         self.count = int(count)
         self.has_values = bool(has_values)
         self.bit_count = int(bit_count)
@@ -93,7 +100,10 @@ class RadixSortKernel:
             values_are_ranks=values_are_ranks,
             method=method,
             tile=tile,
+            mesh=mesh,
+            axis_name=axis_name,
         )
+        self.mesh, self.axis_name = mesh, axis_name
 
     def dispatch(self, keys, values=None):
         """Run the sort. Returns keys or (keys, values)."""
@@ -107,8 +117,9 @@ class RadixSortKernel:
 
     def compile(self, buffer_len=None):
         """Warm-up: build the kernels and sort a zero buffer of
-        `buffer_len` (default: count) elements on the kernel's device."""
-        n = buffer_len or self.count
+        `buffer_len` (default: count) elements on the kernel's device; with
+        `mesh=`, every rank calls it, and each sorts its shard of the buffer."""
+        n = _shard_len(buffer_len or self.count, self.mesh, self.axis_name)
         dev = interop.resolve_device(self.device)
         k = torch.zeros(n, dtype=self.key_dtype, device=dev)
         if self.has_values:
@@ -151,13 +162,24 @@ class RadixSortPackedKernel:
 RadixSortTextureKernel = RadixSortPackedKernel
 
 
+def _shard_len(n: int, mesh, axis_name: str) -> int:
+    """This rank's share of a buffer of n elements (all of it without a mesh)."""
+    if mesh is None:
+        return n
+    from .parallel.mesh_sort import shard_length
+
+    _, n_dev, me = common.mesh_axis(mesh, axis_name)
+    return shard_length(n, n_dev, me)
+
+
 class PrefixSumKernel:
     """Exclusive (default) or inclusive prefix sum of the first `count`
     elements of a uint32/int32 buffer, u32 wraparound, the rest untouched
     (the reference's `PrefixSumKernel`). `avoid_bank_conflicts`, `block_rows`
-    and `interpret` are accepted for API compatibility and ignored, and so is
-    `axis_name` while `mesh=` has no path here (the mesh scan is still to be
-    ported, and `mesh=` raises). `device` is where `compile()` warms up: by
+    and `interpret` are accepted for API compatibility and ignored. With
+    `mesh=` (a ``DeviceMesh``) and `axis_name=`, `count` is global and
+    `dispatch` scans this rank's shard of the global buffer
+    (``parallel/scan.py``). `device` is where `compile()` warms up: by
     default the CUDA card.
     """
 
@@ -165,14 +187,16 @@ class PrefixSumKernel:
                  interpret=None, avoid_bank_conflicts: bool = False, mesh=None,
                  axis_name: str = "x", device=None):
         # accepted, ignored
-        del block_rows, interpret, avoid_bank_conflicts, axis_name
-        common.reject_mesh(mesh)
+        del block_rows, interpret, avoid_bank_conflicts
+        if mesh is not None:
+            common.mesh_axis(mesh, axis_name)
         self.count = int(count)
         if self.count < 0:
             raise ValueError(f"count must be >= 0, got {self.count}")
         self.device = device
+        self.mesh, self.axis_name = mesh, axis_name
         self._fn = functools.partial(scan_ops.prefix_sum, count=self.count,
-                                     inclusive=inclusive)
+                                     inclusive=inclusive, mesh=mesh, axis_name=axis_name)
 
     def dispatch(self, items):
         """Run the scan. Returns a new tensor of the items' dtype."""
@@ -182,7 +206,8 @@ class PrefixSumKernel:
         """Warm-up: build the kernel and scan a zero uint32 buffer of
         `buffer_len` (default: count) elements on the kernel's device."""
         dev = interop.resolve_device(self.device)
-        self.dispatch(torch.zeros(buffer_len or self.count, dtype=torch.uint32, device=dev))
+        n = _shard_len(buffer_len or self.count, self.mesh, self.axis_name)
+        self.dispatch(torch.zeros(n, dtype=torch.uint32, device=dev))
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         return self

@@ -17,6 +17,8 @@ int32 view, or the int64 word of (hi, lo)) plus a gather of the rest.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from ..utils import interop
@@ -50,9 +52,12 @@ def sort_batched(
     tie-break. Returns keys or (keys, values), same shape, on the keys'
     device. `tile` overrides the network's tile; `block_rows` and
     `interpret` (the JAX package's knobs) are accepted and ignored.
+
+    `mesh=` (a ``DeviceMesh``) shards the batch dimension over the mesh dim
+    `axis_name`: `keys` (and `values`) are this rank's block of rows, which
+    it sorts on its own, with no collective (``parallel/batched.py``).
     """
-    del block_rows, interpret, axis_name
-    common.reject_mesh(mesh)
+    del block_rows, interpret
     keys = interop.as_tensor(keys, device)
     if keys.dim() != 2:
         raise ValueError("sort_batched expects a 2-D (batch, n) key array")
@@ -61,7 +66,12 @@ def sort_batched(
     bit_count, method = common.check_args(keys, values, bit_count=bit_count,
                                           values_are_ranks=values_are_ranks,
                                           method=method, name="sort_batched")
-    out_k, out_v = _sort_batched_core(
+    core = _sort_batched_core
+    if mesh is not None:
+        from ..parallel.batched import mesh_sort_batched
+
+        core = functools.partial(mesh_sort_batched, mesh=mesh, axis_name=axis_name)
+    out_k, out_v = core(
         keys.contiguous(), None if values is None else values.contiguous(),
         bit_count=bit_count, descending=descending, total_order=total_order,
         values_are_ranks=values_are_ranks and values is not None, method=method,

@@ -260,6 +260,24 @@ def merge_schedule(n: int, tile: int):
     return _merge_round(n, tile)
 
 
+def merge_tree_schedule(n: int, run: int, tile: int):
+    """Kernel calls that finish a sort of length n whose rounds k <= `run`
+    are done (n/run runs sorted in alternating directions): rounds k =
+    2*run..n. Rounds that fit a tile (2*run <= tile) take one tile call,
+    as phase 1 does; the rest are merge rounds. `run` >= n: no call."""
+    if run >= n:
+        return []
+    calls = []
+    k = 2 * run
+    if k <= tile:
+        calls.append(("tile", _block_stages(k, tile)))
+        k = 2 * tile
+    while k <= n:
+        calls += _merge_round(k, tile)
+        k *= 2
+    return calls
+
+
 def row_schedule(row_len: int, tile: int):
     """Kernel calls of the row-local network: every aligned run of
     `row_len` (a power of two) elements sorted ascending on its own.
@@ -330,6 +348,16 @@ def merge_padded_cols(x: torch.Tensor, *, n_keys: int, tile=None) -> torch.Tenso
     return run_schedule(x, merge_schedule(x.shape[1], t), n_keys=n_keys, tile=t)
 
 
+def merge_tree_padded_cols(x: torch.Tensor, *, run: int, n_keys: int,
+                           tile=None) -> torch.Tensor:
+    """:func:`merge_tree_padded` on one (n_arr, n) int32 tensor, in place."""
+    _check_pow2_cols(x, n_keys)
+    if not _is_pow2(run) or x.shape[1] % run:
+        raise ValueError(f"run must be a power of two dividing {x.shape[1]}, got {run}")
+    t = resolve_tile(x.shape[1], x.shape[0], tile)
+    return run_schedule(x, merge_tree_schedule(x.shape[1], run, t), n_keys=n_keys, tile=t)
+
+
 def rows_layout(rows: int, row_len: int, n_arr: int, tile=None):
     """(tile, padded rows) of the row-local network for `rows` rows of
     `row_len`: the tile as :func:`resolve_tile` gives it for the whole
@@ -387,4 +415,17 @@ def merge_padded(arrs, *, stable, tile=None, n_keys=None):
     n_keys = (2 if stable else 1) if n_keys is None else n_keys
     x, dtype = _padded_cols(arrs)
     merge_padded_cols(x, n_keys=n_keys, tile=tile)
+    return tuple(row.view(dtype) for row in x)
+
+
+def merge_tree_padded(arrs, *, run, stable, tile=None, n_keys=None):
+    """Complete a bitonic sort whose rounds k <= `run` are done: the
+    columns hold n/run runs of `run` elements, run i sorted ascending if i
+    is even and descending if odd (:func:`merge_tree_schedule`). Same
+    column contract as :func:`sort_padded`. This is the exchange sort's
+    D-way merge (``parallel/radix_exchange.py``); with run == n/2 it is
+    :func:`merge_padded` of [A ascending ++ B descending]."""
+    n_keys = (2 if stable else 1) if n_keys is None else n_keys
+    x, dtype = _padded_cols(arrs)
+    merge_tree_padded_cols(x, run=run, n_keys=n_keys, tile=tile)
     return tuple(row.view(dtype) for row in x)

@@ -179,10 +179,18 @@ def disorder_count(u, *, count=None, bit_count=None, total_order=False,
     Compares the low `bit_count` bits (default: the key's width) of the bit
     pattern, like the sort; `total_order`/`descending` check under those
     sort options' key view. 64-bit keys compare (hi, lo) pairs (K3).
-    `block_rows` and `interpret` are accepted and ignored.
+    `block_rows` and `interpret` are accepted and ignored. With `mesh=` (a
+    ``DeviceMesh``), `u` is this rank's shard of the global keys, `count`
+    is global, and every rank gets the count of the global array
+    (``parallel/check.py``).
     """
-    del block_rows, interpret, axis_name
-    common.reject_mesh(mesh)
+    del block_rows, interpret
+    if mesh is not None:
+        from ..parallel.check import mesh_disorder_count
+
+        return mesh_disorder_count(u, mesh=mesh, axis_name=axis_name, count=count,
+                                   bit_count=bit_count, total_order=total_order,
+                                   descending=descending, device=device)
     return disorder_count_cols(
         _check_view(u, count, bit_count, total_order, descending, device))
 
@@ -191,9 +199,14 @@ def is_sorted(u, *, count=None, bit_count=None, total_order=False,
               descending=False, block_rows=None, interpret=None, device=None,
               mesh=None, axis_name="x") -> bool:
     """Fast-gated full order check (:func:`is_sorted_cols`) under the same
-    key view options as :func:`disorder_count`."""
-    del block_rows, interpret, axis_name
-    common.reject_mesh(mesh)
+    key view options as :func:`disorder_count`, and over a mesh as it."""
+    del block_rows, interpret
+    if mesh is not None:
+        from ..parallel.check import mesh_is_sorted
+
+        return mesh_is_sorted(u, mesh=mesh, axis_name=axis_name, count=count,
+                              bit_count=bit_count, total_order=total_order,
+                              descending=descending, device=device)
     return is_sorted_cols(
         _check_view(u, count, bit_count, total_order, descending, device))
 

@@ -73,13 +73,23 @@ def native_key_bits(dtype) -> int:
     return 32
 
 
-def reject_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= is not ported yet: distributed sorts and checks come with "
-            "the 'parallel/ on torch.distributed' slice of ROADMAP.md "
-            "(Queue 1, item 9)"
+def mesh_axis(mesh, axis_name: str):
+    """(process group, size D, this rank's index) of the `axis_name` dim of
+    a ``torch.distributed.device_mesh.DeviceMesh``: the counterpart of a
+    ``jax.sharding.Mesh`` axis for the multi-device layer
+    (``parallel/``). Raises TypeError for any other `mesh`."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    if not isinstance(mesh, DeviceMesh):
+        raise TypeError(
+            f"mesh must be a torch.distributed.device_mesh.DeviceMesh, got "
+            f"{type(mesh).__name__}"
         )
+    names = mesh.mesh_dim_names or ()
+    if axis_name not in names:
+        raise ValueError(f"axis_name {axis_name!r} is not a dim of the mesh {names}")
+    return (mesh.get_group(axis_name), mesh.size(names.index(axis_name)),
+            mesh.get_local_rank(axis_name))
 
 
 def _u16_pattern(keys: torch.Tensor) -> torch.Tensor:

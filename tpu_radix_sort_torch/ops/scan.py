@@ -72,9 +72,15 @@ def prefix_sum(items, *, count=None, inclusive=False, block_rows=None, interpret
     elements with u32 wraparound; elements at index >= count are returned
     untouched. uint32 or int32 in, a new tensor of the same dtype out.
     `block_rows` and `interpret` (the JAX package's knobs) are accepted and
-    ignored."""
-    del block_rows, interpret, axis_name
-    common.reject_mesh(mesh)
+    ignored. With `mesh=` (a ``DeviceMesh``), `items` is this rank's shard
+    of the global array, `count` is global, and the result is this rank's
+    shard of the global scan (``parallel/scan.py``)."""
+    del block_rows, interpret
+    if mesh is not None:
+        from ..parallel.scan import mesh_prefix_sum
+
+        return mesh_prefix_sum(items, mesh=mesh, axis_name=axis_name, count=count,
+                               inclusive=inclusive, device=device)
     items = interop.as_tensor(items, device)
     if items.dtype not in (torch.uint32, torch.int32):
         raise TypeError(f"prefix_sum expects uint32/int32, got {items.dtype}")

@@ -73,16 +73,30 @@ def sort_segments(
     SEGMENT of `values`, viewed as u32, is strictly increasing with every
     element < 0xFFFFFFFF. Returns keys or (keys, values), same shape, on
     the keys' device. `block_rows` and `interpret` are accepted and ignored.
+
+    `mesh=` (a ``DeviceMesh``): `keys` (and `values`) are this rank's shard
+    of the global arrays, `offsets` the global bounds, the same on every
+    rank, and `method` 'auto' or 'mesh'; the result is this rank's shard
+    (``parallel/segmented.py``; `values_are_ranks` is ignored there).
     """
-    del block_rows, interpret, axis_name
-    common.reject_mesh(mesh)
+    del block_rows, interpret
     keys = _keys(keys, device, "sort_segments")
     offsets = _offsets(offsets, keys.device)
     if values is not None:
         values = interop.as_tensor(values, keys.device).contiguous()
+    if mesh is not None:
+        _check_mesh_method(method, "sort_segments")
+        method = "auto"
     bit_count, method = common.check_args(
         keys, values, bit_count=bit_count, values_are_ranks=values_are_ranks,
         method=method, name="sort_segments")
+    if mesh is not None:
+        from ..parallel.segmented import mesh_sort_segments
+
+        out_k, out_v = mesh_sort_segments(
+            keys, offsets, values, mesh=mesh, axis_name=axis_name, bit_count=bit_count,
+            descending=descending, total_order=total_order, tile=tile)
+        return out_k if values is None else (out_k, out_v)
     out_k, out_v = _sort_segments_core(
         keys, offsets, values, bit_count=bit_count, descending=descending,
         total_order=total_order, values_are_ranks=values_are_ranks and values is not None,
@@ -97,18 +111,32 @@ def argsort_segments(keys, offsets, *, bit_count=None, descending=False,
     that each element sorts to. The payload, position minus segment start,
     satisfies the rank contract; the starts come from the same boundary
     scan as the segment ids. Arguments are checked as
-    :func:`sort_segments` checks them."""
-    del block_rows, interpret, axis_name
-    common.reject_mesh(mesh)
+    :func:`sort_segments` checks them, and `mesh=` runs as there."""
+    del block_rows, interpret
     keys = _keys(keys, device, "argsort_segments")
     offsets = _offsets(offsets, keys.device)
+    if mesh is not None:
+        _check_mesh_method(method, "argsort_segments")
+        method = "auto"
     bit_count, method = common.check_args(
         keys, None, bit_count=bit_count, values_are_ranks=True, method=method,
         name="argsort_segments")
+    if mesh is not None:
+        from ..parallel.segmented import mesh_sort_segments
+
+        return mesh_sort_segments(
+            keys, offsets, mesh=mesh, axis_name=axis_name, bit_count=bit_count,
+            descending=descending, total_order=total_order, make_ranks=True, tile=tile)[1]
     return _sort_segments_core(
         keys, offsets, None, bit_count=bit_count, descending=descending,
         total_order=total_order, values_are_ranks=True, make_ranks=True,
         method=method, tile=tile)[1]
+
+
+def _check_mesh_method(method, name):
+    if method not in ("auto", "mesh"):
+        raise ValueError(f"with mesh=, {name} supports method in ('auto', 'mesh'); "
+                         f"got {method!r}")
 
 
 def segment_ids_and_starts(offsets, n, *, need_starts):

@@ -14,7 +14,10 @@ Engines (`method`): 'bitonic' (the hand-written network, kernel K1; what
 'auto' picks), 'radix' (the 4-way LSD radix sort, kernels K5, K4 and K6,
 ``ops/radix.py``), 'xla' (``torch.sort(stable=True)`` on the sign-biased
 int32 view plus a gather of the payloads — the baseline, outside any kernel
-of this package). `mesh=` comes with a later slice.
+of this package). With `mesh=`, a ``DeviceMesh``, the call is one rank's
+part of a distributed sort (``parallel/``): `method` picks the strategy,
+'mesh' (the compare-split network), 'exchange' (the radix exchange) or
+'auto' (:func:`_resolve_mesh_method`).
 
 Device policy: a tensor runs where it lies; numpy or list input goes to the
 CUDA card unless `device=` names another (see ``utils/interop.py``).
@@ -27,6 +30,7 @@ from ..utils import interop
 from . import bitonic, checksort, common, radix
 
 _METHODS = ("auto", "bitonic", "radix", "xla")
+_MESH_METHODS = ("auto", "mesh", "exchange")
 
 # The bitonic network needs a power-of-two length, so a plain pad can cost
 # up to 2x. When the pad would waste >= 33% and the input is large enough
@@ -127,6 +131,19 @@ def _resolve_method(method: str) -> str:
     return "bitonic" if method == "auto" else method
 
 
+def _resolve_mesh_method(method: str, n_dev: int) -> str:
+    """The distributed strategy for an axis of `n_dev` ranks. 'auto' takes
+    the compare-split network ('mesh') at 4 ranks or fewer, as the JAX
+    package does, and the exchange above; the network needs a power of
+    two, so 'auto' also takes the exchange at 3 ranks, where the JAX
+    package's network fails."""
+    if method not in _MESH_METHODS:
+        raise ValueError(f"with mesh=, method must be one of {_MESH_METHODS}, got {method}")
+    if method == "auto":
+        return "mesh" if n_dev <= 4 and not n_dev & (n_dev - 1) else "exchange"
+    return method
+
+
 def _lex_word(hi, lo) -> torch.Tensor:
     """int64 whose signed order is the unsigned order of the pair (hi, lo)."""
     return common._join_u64(hi, lo) ^ common.SIGN_I64
@@ -206,9 +223,25 @@ def sort(
 
     `block_rows` and `interpret`, the JAX package's tiling and Pallas knobs,
     are accepted and ignored: the output does not depend on the tile.
+
+    `mesh=` (a ``torch.distributed.device_mesh.DeviceMesh``) makes the call
+    this rank's part of a distributed sort over the mesh dim `axis_name`:
+    `keys` and `values` are this rank's shards of the global arrays, `count`
+    and `bit_count` are global, and the result is this rank's shard of the
+    sorted global array (``parallel/mesh_sort.py``). `method` is then
+    'auto', 'mesh' or 'exchange' (:func:`_resolve_mesh_method`);
+    `values_are_ranks` is ignored, the global index being the tie.
     """
-    del block_rows, interpret, axis_name
-    common.reject_mesh(mesh)
+    del block_rows, interpret
+    if mesh is not None:
+        from .. import parallel  # local import: parallel builds on ops
+
+        _, n_dev, _ = common.mesh_axis(mesh, axis_name)
+        fn = (parallel.mesh_sort if _resolve_mesh_method(method, n_dev) == "mesh"
+              else parallel.exchange_sort)
+        return fn(keys, values, mesh=mesh, axis_name=axis_name, count=count,
+                  bit_count=bit_count, check_order=check_order, total_order=total_order,
+                  descending=descending, tile=tile, device=device)
     keys = interop.as_tensor(keys, device)
     if keys.dim() != 1:
         raise ValueError("keys must be 1-D")
@@ -303,9 +336,17 @@ def with_suffix(keys, values, count, out_keys, vcols):
 
 def argsort(keys, *, device=None, **kwargs):
     """Indices (uint32) that stably sort keys. The iota payload satisfies
-    the `values_are_ranks` contract, so argsort takes the 2-column path."""
+    the `values_are_ranks` contract, so argsort takes the 2-column path.
+    With `mesh=`, `keys` is this rank's shard, and the indices are global
+    positions: this rank's shard of the global argsort."""
     keys = interop.as_tensor(keys, device)
-    idx = torch.arange(keys.shape[0], dtype=torch.int32, device=keys.device)
+    start = 0
+    if kwargs.get("mesh") is not None:
+        from ..parallel import layout
+
+        group, _, me = common.mesh_axis(kwargs["mesh"], kwargs.get("axis_name", "x"))
+        start = sum(layout.shard_lengths(keys.shape[0], group, keys.device)[:me])
+    idx = torch.arange(start, start + keys.shape[0], dtype=torch.int32, device=keys.device)
     kwargs.setdefault("values_are_ranks", True)
     _, out = sort(keys, idx.view(torch.uint32), **kwargs)
     return out
