@@ -43,7 +43,18 @@ launches a rank against the schedules, ``check_order`` on sorted input,
 layout case at 2^20, ``overlap_chunks=4``, ``dryrun_multichip(4)``) and a
 world of 1 NCCL rank (both strategies at 2^20), every rank's shard of each
 result held against the single-device sort on the card and the numpy
-golden; checks every result byte for byte, times the sorts, the scan,
+golden; then, as a path of its own, the runtime and demos phase
+(:func:`runtime_phase`): the native CPU sort builds and loads; one 2^26
+u32 key + rank sort through each engine under ``runtime.trace`` in an
+``annotate("sort")`` span, the trace's kernel events of the port's kernels
+equal to the launch counter's, and the card's busy share within the span;
+``examples/demo.py`` at 2^26 (``--values --ranks``) and at 2^22
+(``--check-order --consecutive 4``, ``--packed``, ``--dtype uint64
+--check-order``), ``examples/demo_mesh.py`` with 4 gloo ranks on the card
+at 2^22 (``--values --scan``), then ``benchmarks/crossover.py`` and the
+probes ``explore_stages``, ``explore_segmented``, ``explore_blockrows``,
+``explore_msd`` and ``explore_primitives``, each ``check`` then ``main``;
+checks every result byte for byte, times the sorts, the scan,
 each kernel, its plain version and ``torch.sort``/``torch.cumsum`` (K1's
 replayed calls each the median of several, its tile calls split into
 phase 1 and the mean merge tail, the row-local network (the batched
@@ -74,6 +85,12 @@ beside a device ``copy_`` of the same columns), and prints:
   received, wall, device time between collectives and collective time;
   four processes share the card: not multi-GPU times) and one JSON line
   ``{"mesh": {...}}``;
+- for the runtime and demos phase: each engine's busy share, the demos'
+  and crossover's tables, the probes' rows, one JSON line each for
+  ``profile``, ``demos``, ``crossover``, ``stages``, ``segmented``,
+  ``blockrows``, ``msd`` and ``primitives`` (each with the card's name and
+  power limit), and the seconds of each of its steps;
+- each phase's seconds, as it ends;
 - one JSON line ``{"kernels": [...]}``;
 - last, ``{"ok": true, "device": {...}}``.
 
@@ -232,8 +249,19 @@ def run(dev) -> None:
     from tpu_radix_sort_torch.runtime.timing import device_time
 
     t_start = time.perf_counter()
+    phase_seconds = {}
+    marks = []
+
+    def phase_mark(name):
+        """Close the running phase (its seconds) and open `name`."""
+        now = time.perf_counter()
+        if marks:
+            phase_seconds[marks[-1][0]] = now - marks[-1][1]
+            print(f"phase {marks[-1][0]}: {phase_seconds[marks[-1][0]]:.1f} s", flush=True)
+        marks.append((name, now))
 
     # ---- build ------------------------------------------------------------
+    phase_mark("build")
     t0 = time.perf_counter()
     logs = _build.build()
     print(f"build: {sorted(logs)} in {time.perf_counter() - t0:.1f} s")
@@ -285,6 +313,7 @@ def run(dev) -> None:
     max_err = {k.name: 0 for k in _build.KERNELS}
 
     # ---- kernels vs plain versions, small shapes ---------------------------
+    phase_mark("kernels vs plain")
     # (3, 3): the 64-bit key + rank sort; (6, 3) and (7, 3): the 64-bit key
     # paths' widest networks
     for n_arr, n_keys in ((1, 1), (2, 2), (3, 2), (3, 3), (4, 2), (6, 3), (7, 3)):
@@ -393,6 +422,7 @@ def run(dev) -> None:
     del x, got, want
 
     # ---- the main path -----------------------------------------------------
+    phase_mark("main path")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launches()
@@ -610,6 +640,7 @@ def run(dev) -> None:
     del small
 
     # ---- the batched and segmented sorts: this path's own counts ----------
+    phase_mark("batched and segmented")
     # benchmarks/workloads.py:236-259: 2^24 u32 keys as 1,024 rows of
     # 16,384 (batched), as S = 4,096 segments of Zipf sizes (a seeded
     # multinomial, every segment >= 1) and as S = 1,024 equal segments
@@ -685,6 +716,7 @@ def run(dev) -> None:
                   f"{d['scan_kernel']})")
 
     # ---- times ------------------------------------------------------------
+    phase_mark("times")
     sort_ms = device_time(lambda k, v: trt.sort(k, v, values_are_ranks=True),
                           keys, iota, warmup=2, iters=10) * 1e3
     keys_only_ms = device_time(trt.sort, keys, warmup=2, iters=10) * 1e3
@@ -1064,6 +1096,7 @@ def run(dev) -> None:
     del x3
 
     # ---- the probes (P1-P9): this path's own counts --------------------------
+    phase_mark("probes")
     # Each probe module runs as its script does (every case timed, the
     # batched sorts beside torch.sort); the counts are read, and then each
     # probe kernel is held against its plain version.
@@ -1204,6 +1237,7 @@ def run(dev) -> None:
                           library_ms=r["library_ms"])
 
     # ---- the mesh phase: its own counts, in its own processes --------------
+    phase_mark("mesh")
     mesh_counts, mesh_err = mesh_phase(dev)
     for name, e in mesh_err.items():
         max_err[name] = max(max_err[name], e)
@@ -1211,6 +1245,14 @@ def run(dev) -> None:
     for name in MESH_KERNELS:
         check(mesh_counts[name] > 0, f"{name} launched on the mesh path ({mesh_counts[name]})")
 
+    # ---- runtime and demos: the profiler, the demos, crossover, the probes --
+    phase_mark("runtime and demos")
+    runtime_counts, runtime_err = runtime_phase(dev)
+    for name, e in runtime_err.items():
+        max_err[name] = max(max_err[name], e)
+    print(f"launches runtime and demos path: {json.dumps(runtime_counts)}", flush=True)
+
+    phase_mark("checks and summary")
     # checked last, so that a run that fails it still prints its times
     new_k1 = {(str(a), str(k)) for a, k in NEW_K1}
     spilled = {f"{a},{k}": b for (a, k), b in tile_spills.items()
@@ -1246,7 +1288,7 @@ def run(dev) -> None:
             "source": f"tpu_radix_sort_torch/csrc/{k.source}.cu",
             "replaces": REPLACES[k.name],
             "launches": (main_counts[k.name] + slice_counts[k.name] + probe_counts[k.name]
-                         + mesh_counts[k.name]),
+                         + mesh_counts[k.name] + runtime_counts[k.name]),
             "max_abs_err": max_err[k.name],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": r["library_ms"],
@@ -1274,6 +1316,7 @@ def run(dev) -> None:
         "cumsum_ms": rows["scan_kernel"]["library_ms"],
         "peak_mem_bytes_all": torch.cuda.max_memory_allocated(),
         "seconds_total": time.perf_counter() - t_start,
+        "phase_seconds": phase_seconds,
     }}))
     print(json.dumps({"sort64": wide}))
     print(json.dumps({"keys16": keys16}))
@@ -1281,7 +1324,8 @@ def run(dev) -> None:
                       "launches_by_path": {"flat sort": main_counts,
                                            "batched and segmented": slice_counts,
                                            "probes": probe_counts,
-                                           "mesh (all ranks)": mesh_counts}}))
+                                           "mesh (all ranks)": mesh_counts,
+                                           "runtime and demos": runtime_counts}}))
     print(json.dumps({"kernels": kernels}))
 
 
@@ -1737,6 +1781,191 @@ def mesh_phase(dev, sizes=MESH_SIZES):
                                "world share one card, and gloo's collectives cross through "
                                "the host", "launch_order": MESH_KERNELS, "sizes": sizes,
                                "worlds": worlds}}))
+    return counts, err
+
+
+# ---- runtime and demos ---------------------------------------------------------
+# The host-side modules of the port, each driven as a user runs it: the
+# profiler around one 2^26 sort a engine, the two demos, crossover and the
+# five probes of benchmarks/ (``check``, then ``main``). Their launches count
+# where a path runs (the traced sorts, the demos, each ``main``), not where a
+# ``check`` holds a kernel against its plain version.
+PROFILE_N = HEADLINE_N
+DEMO_N = OPTION_N
+DEMO_MESH_N = 1 << 22
+PROFILE_ENGINES = ("auto", "radix")
+
+
+def profile_sort(dev, method, keys, ranks, log_dir):
+    """One key + rank sort through `method` under ``runtime.trace`` in an
+    ``annotate("sort")`` span; the trace's kernel events of the port's
+    kernels must equal the launch counter's delta. Returns the JSON record:
+    the launches, the span, the card's busy time and share within it."""
+    import torch
+
+    import tpu_radix_sort_torch as trt
+    from tpu_radix_sort_torch import _build
+    from tpu_radix_sort_torch.ops import common
+    from tpu_radix_sort_torch.runtime import annotate, profiler, trace
+
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    with trace(log_dir, device=dev):
+        with annotate("sort"):
+            out_k, out_v = trt.sort(keys, ranks, values_are_ranks=True, method=method)
+            torch.cuda.synchronize()
+    counts = {k: c for k, c in _build.launch_counts().items() if c}
+    events = profiler.load_events(log_dir)
+    traced = {k: c for k, c in profiler.kernel_counts(
+        events, [k.name for k in _build.KERNELS]).items() if c}
+    want_k, want_i = torch.sort(common.bias_i32(keys.view(torch.int32)), stable=True)
+    check(same(out_k, common.bias_i32(want_k)) and same(out_v, want_i.to(torch.int32)),
+          f"traced sort(method={method!r}), 2^26 u32 key + rank == torch.sort(stable=True)")
+    check(counts and traced == counts,
+          f"the trace of sort(method={method!r}) holds one kernel event a launch of the port's "
+          f"kernels: {traced} == the launch counter's {counts}")
+    busy = profiler.busy_share(events, "sort")
+    return {"method": method, "launches": counts, **busy,
+            "events_in_trace": len(events),
+            "torch_kernel_events": sum(e.get("cat") == "kernel" for e in events)
+            - sum(traced.values())}
+
+
+def runtime_phase(dev):
+    """The runtime and demos phase (see above PROFILE_N). Prints the busy
+    share of each engine, the demos' and crossover's tables, and one JSON
+    line each for profile, demos, crossover, stages, segmented, blockrows,
+    msd and primitives. Returns (its launches by kernel, K1's largest
+    difference from stages_plain in explore_stages.check)."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    import tpu_radix_sort_torch as trt
+    from tpu_radix_sort_torch import _build
+    from tpu_radix_sort_torch.benchmarks import (crossover, explore_blockrows, explore_msd,
+                                                 explore_primitives, explore_segmented,
+                                                 explore_stages)
+    from tpu_radix_sort_torch.examples import demo, demo_mesh
+    from tpu_radix_sort_torch.ops import bitonic
+    from tpu_radix_sort_torch.runtime import cpu_baseline
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    counts = {k.name: 0 for k in _build.KERNELS}
+    seconds = {}
+
+    def counted(fn, *args, **kw):
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        for k, c in _build.launch_counts().items():
+            counts[k] += c
+        return out
+
+    def phase(name):
+        seconds[name] = time.perf_counter()
+        print(f"-- {name} [{smi}]", flush=True)
+
+    def done(name):
+        seconds[name] = time.perf_counter() - seconds[name]
+        print(f"-- {name}: {seconds[name]:.1f} s", flush=True)
+
+    phase("native CPU baseline")
+    check(cpu_baseline.native_available(),
+          f"the native CPU sort builds and loads ({cpu_baseline.library_path()})")
+    done("native CPU baseline")
+
+    phase("profile")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 3)
+    keys = torch.randint(-2**31, 2**31, (PROFILE_N,), dtype=torch.int32, device=dev,
+                         generator=gen).view(torch.uint32)
+    ranks = torch.arange(PROFILE_N, dtype=torch.int32, device=dev).view(torch.uint32)
+    profile = {}
+    tmp = tempfile.mkdtemp(prefix="trs_trace_")
+    try:
+        for method in PROFILE_ENGINES:
+            trt.sort(keys, ranks, values_are_ranks=True, method=method)  # warm
+            rec = profile_sort(dev, method, keys, ranks, os.path.join(tmp, method))
+            for k, c in rec["launches"].items():
+                counts[k] += c
+            profile[method] = rec
+            print(f"busy share, sort(method={method!r}) 2^26 u32 key + rank under the "
+                  f"profiler: {rec['busy_share']:.4f} ({rec['busy_ms']:.3f} of "
+                  f"{rec['span_ms']:.3f} ms; launches {rec['launches']}) [{smi}]", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    tile = bitonic.resolve_tile(PROFILE_N, 2)
+    tiles, globals_ = k1_calls(bitonic.sort_schedule(PROFILE_N, tile))
+    got = profile["auto"]["launches"]
+    check(got.get("bitonic_tile_kernel") == tiles and got.get("bitonic_global_stage_kernel")
+          == globals_, f"the traced bitonic sort made the schedule's {tiles} tile and "
+          f"{globals_} global K1 launches at tile {tile}")
+    print(json.dumps({"profile": {"card": smi, "n": PROFILE_N, "engines": profile}}))
+    del keys, ranks
+    done("profile")
+
+    phase("demo")
+    demos = {}
+    full = ["--n", str(PROFILE_N), "--values", "--ranks"]
+    for label, argv in (("values ranks 2^26", full),
+                        ("check-order consecutive 4", ["--n", str(DEMO_N), "--check-order",
+                                                       "--consecutive", "4"]),
+                        ("packed", ["--n", str(DEMO_N), "--packed"]),
+                        ("uint64 check-order", ["--n", str(DEMO_N), "--dtype", "uint64",
+                                                "--check-order"])):
+        r = counted(demo.main, argv)
+        keys_np = r["keys"]
+        if "uint64" in label:
+            ok = np.array_equal(r["out"], np.sort(keys_np))
+        else:
+            want_k, want_v = cpu_baseline.cpu_sort(keys_np, np.arange(keys_np.size,
+                                                                     dtype=np.uint32))
+            if label == "packed":
+                rec = r["out"].reshape(-1, 2)
+                ok = np.array_equal(rec[:, 0], want_k) and np.array_equal(rec[:, 1], want_v)
+            elif "values" in label:
+                ok = np.array_equal(r["out"][0], want_k) and np.array_equal(r["out"][1], want_v)
+            else:
+                ok = np.array_equal(r["out"], want_k) and np.array_equal(r["fed_out"], want_k)
+        check(ok and r["timer"] == "device", f"demo {label}: output == the CPU sort")
+        demos[label] = {k: r[k] for k in ("t_dev", "t_rest", "t_sort", "t_cpu", "cpu_kind")}
+    done("demo")
+
+    phase("demo_mesh")
+    r = demo_mesh.main(["--devices", "4", "--n", str(DEMO_MESH_N), "--values", "--scan"])
+    for k, c in r["launches"].items():
+        counts[k] += c
+    check(len(r["rows"]) == 5 and all(row["golden_exact"] for row in r["rows"]),
+          f"demo_mesh 4 ranks ({r['backend']} on {sorted(set(r['rank_devices']))}), 2^22 u32 "
+          f"key + value, both strategies and the scan: golden-exact")
+    demos["mesh"] = {"backend": r["backend"], "rank_devices": r["rank_devices"],
+                     "cards": r["cards"], "rows": r["rows"], "launches": r["launches"]}
+    print(json.dumps({"demos": {"card": smi, **demos}}))
+    done("demo_mesh")
+
+    err = {}
+    for name, mod, label in ((("crossover", crossover, "crossover"),
+                              ("explore_stages", explore_stages, "stages"),
+                              ("explore_segmented", explore_segmented, "segmented"),
+                              ("explore_blockrows", explore_blockrows, "blockrows"),
+                              ("explore_msd", explore_msd, "msd"),
+                              ("explore_primitives", explore_primitives, "primitives"))):
+        phase(name)
+        e = mod.check(dev)
+        check(e == 0, f"{name}.check: every row == its reference on the card")
+        if name == "explore_stages":
+            err["bitonic_tile_kernel"] = err["bitonic_global_stage_kernel"] = e
+        rows = counted(mod.main, dev)
+        torch.cuda.empty_cache()
+        print(json.dumps({label: {"card": smi, "rows": rows}}))
+        done(name)
+    print(json.dumps({"runtime_phase_seconds": seconds}))
     return counts, err
 
 

@@ -12,7 +12,18 @@
   counting sort (``benchmarks/explore_keys16.py:80``), with the probe's
   sort lines; P9, the min/max stage rate per lane type (:163).
 
-Each runs on the card as ``python -m tpu_radix_sort_torch.benchmarks.<name>``.
+The host-side probes, which launch no kernel of their own:
+
+- ``crossover``: the default engine against the native CPU sort, 2^10-2^24;
+- ``explore_stages``: K1's tile kernel taken apart (loads and stores,
+  register stages, window changes, direction) and its global stage;
+- ``explore_segmented``: a row-local path for near-equal segments;
+- ``explore_blockrows``: the tile sweep against ``choose_tile``;
+- ``explore_msd``, ``explore_primitives``: ``torch.sort``, gathers,
+  scatters and the radix passes, the primitives of a radix engine.
+
+Each runs on the card as ``python -m tpu_radix_sort_torch.benchmarks.<name>``
+(its ``check``, then its ``main``).
 """
 
 # The card's rates that the bounds of the probes and of chip_smoke.py use.
