@@ -22,8 +22,11 @@ compare-exchange probes of ``tpu_radix_sort_torch/benchmarks`` (P1
 ``explore_ce`` in every variant, both formulations, 16 and 0 stages, each
 beside a ``copy_`` of its columns, and held against its plain version at
 one tile, two tiles and 2^24, twice in a row and in place; P2 and
-P3 ``explore_blocksort`` on one tile and on 256, beside ``torch.sort(dim=1)``
-and ``sort_batched``; the scan probes P4-P7 ``explore_scan`` at 2^24: the
+P3 ``explore_blocksort`` on one tile and on 256 (P2 a tile a cluster, P3's
+rings split across the lanes of a warp on one tile), one tile also in each
+cluster size and each split, beside the launch floor (an empty kernel,
+queued as the probes are), ``torch.sort(dim=1)`` and ``sort_batched``; the
+scan probes P4-P7 ``explore_scan`` at 2^24: the
 copy floor, K4, the chained scan and the two-pass scan with P4 and P5
 alone, each beside ``copy_``, ``torch.cumsum`` or a sum; ``explore_keys16``:
 the probe's 2^24 u16 sort lines, the two counting sorts with P8's running
@@ -31,7 +34,9 @@ max among them, each byte-checked against ``torch.sort``, P8 alone beside
 ``torch.cummax``, and P9 for four lane types at 16 and 256 stages), each
 kernel then held against its plain version byte for byte (the chained
 scans P7 and P8 also at the edges of their clusters, the copy P6 at
-the edges of its chunks, each case 50 times, and P9 also on every 16-bit
+the edges of its chunks, each case 50 times, P2 at 1, 3 and 256 tiles in
+each cluster size, P3 at 1, 2, 3, 33 and 256 tiles, 0, 1, 63 and 64
+stages, with every split, and P9 also on every 16-bit
 pattern beside the values the lane types disagree on); then, as a path of
 its own, the mesh phase (``parallel/``, :func:`mesh_phase`): K1's
 merge-tree schedule against its plain version at 2^22, then a world of 4
@@ -68,13 +73,18 @@ beside a device ``copy_`` of the same columns), and prints:
   and the build's register, shared-memory and spill lines (it fails if the
   K1 tile kernel spills with 2 or 3 columns, either K1 kernel with 4 key
   words or 8 columns, the K6 reorder kernel at all, any of P1's 20 kernels,
-  any kernel of ``csrc/explore_scan.cu``, or P9's int32 or bfloat16
-  kernel);
+  any kernel of ``csrc/explore_scan.cu`` or ``csrc/explore_blocksort.cu``,
+  or P9's int32 or bfloat16 kernel);
 - one line per check, and one JSON line per probe case;
 - one JSON line ``{"ce_probe_design": {...}}``: P1's problem shape, threads
   and buffers a block, and for each of its 20 kernels the blocks resident
   an SM, the shared memory a block and the grid (from the C launch) at
   2^24 and on one tile;
+- one JSON line ``{"blocksort_probe_design": {...}}``: P2's cluster size
+  and grid by tile count and the clusters resident at once, P3's split and
+  grid at each of its check tiles on this card, the launch floor (one
+  block, one cluster), each one-tile time over it, and the times by
+  cluster size and by split;
 - one JSON line ``{"scan_probe_design": {...}}``: the chained scans'
   cluster size and the clusters resident at once, P7's and P8's links at
   2^24 and their time a link, and P6 over ``copy_``;
@@ -130,6 +140,7 @@ REPLACES = {
     "explore_ce_kernel": "benchmarks/explore_ce.py:56",
     "blocksort_ce_kernel": "benchmarks/explore_blocksort.py:42",
     "blocksort_stages_kernel": "benchmarks/explore_blocksort.py:74",
+    "blocksort_stages_split_kernel": "benchmarks/explore_blocksort.py:74",
     "keys16_stage_kernel": "benchmarks/explore_keys16.py:144",
     "blocksum_kernel": "benchmarks/explore_scan.py:77",
     "addback_kernel": "benchmarks/explore_scan.py:82",
@@ -293,6 +304,10 @@ def run(dev) -> None:
     # P9's kernels with 128 registers of row: int32 and bfloat16
     stage_spills = {m.group(0): b for e, b in spills.items()
                     if (m := re.search(r"stage(32|_bf16)_kernel", e))}
+    # P2 in clusters of 8 and 16, P3's register kernel and its five splits
+    blocksort_spills = {m.group(1) + (m.group(2) or ""): b for e, b in spills.items()
+                        if (m := re.search(r"\d(blocksort_(?:ce|stages|stages_split)_kernel)"
+                                           r"(?:ILi(\d+)E)?", e))}
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
@@ -1117,9 +1132,13 @@ def run(dev) -> None:
               f"regs, 16 and 0 stages, the probe's and a tie-heavy input, at "
               f"n = {explore_ce.CHECK_SIZES}, two launches in a row and one in place")
     err = explore_blocksort.check(dev)
-    max_err["blocksort_ce_kernel"] = max_err["blocksort_stages_kernel"] = err
-    check(err == 0, "P2 == plain on 1 and 3 tiles; P3 == plain on 1 and 256 tiles, 64 and "
-          "0 stages")
+    for name in ("blocksort_ce_kernel", "blocksort_stages_kernel",
+                 "blocksort_stages_split_kernel"):
+        max_err[name] = err
+    check(err == 0, f"P2 == plain on {explore_blocksort.CE_CHECK_TILES} tiles in each cluster "
+          f"size the card holds; P3 == plain on {explore_blocksort.STAGE_CHECK_TILES} tiles at "
+          f"{explore_blocksort.CHECK_STAGES} stages, the host's split and each of "
+          f"{explore_blocksort.RING_SPLITS}")
     max_err["keys16_stage_kernel"] = max_err["cummax_kernel"] = explore_keys16.check(dev)
     check(max_err["keys16_stage_kernel"] == 0,
           "P9 == plain: int32, uint16, int16, bfloat16 at reps 0, 1, 7, 16 and 256, and on "
@@ -1174,18 +1193,42 @@ def run(dev) -> None:
           "and launches one block a problem on one tile, every resident block at 2^24")
 
     # the kernels line's row of each probe: the probe's own case (P1 at
-    # 2 columns in registers, the shape of K1's key + rank stages; P3 at
-    # 256 tiles; P9 int32 at reps 256, where its operations, not its bytes,
-    # bound it); every probe kernel's calls timed queued behind a sleep, so
-    # that one-tile P2 shows the card's time, not its launch; bytes read
+    # 2 columns in registers, the shape of K1's key + rank stages; P2 on
+    # one tile; P3's register kernel at 256 tiles and its split kernel on
+    # one tile, where each runs; P9 int32 at reps 256, where its
+    # operations, not its bytes, bound it); every probe kernel's calls
+    # timed queued behind a sleep, so that a one-tile probe shows the
+    # card's time, not its launch; bytes read
     # and written once; operations on the card's integer lanes as each
     # module counts them (P1 explore_ce.ops_per_pair: a two-word compare in
     # each direction and four selects a pair; P2, P3 a minimum or maximum
     # an element a stage, their adds issuing elsewhere; P9 a minimum or
     # maximum an int32 element a stage)
     p1 = probe_row(probe="P1", variant="roll", columns=2, formulation="regs")
-    p2 = probe_row(probe="P2")
+    p2 = probe_row(probe="P2", tiles=1)
+    p2_rate = probe_row(probe="P2", tiles=explore_blocksort.RATE_TILES)
     p3 = probe_row(probe="P3", tiles=explore_blocksort.RATE_TILES)
+    p3_tile = probe_row(probe="P3", tiles=1)
+    eb, sms = explore_blocksort, torch.cuda.get_device_properties(dev).multi_processor_count
+    check(p3["split"] == 1 and p3_tile["split"] > 1 and p2["grid"] > 4 and p3_tile["grid"] > 4,
+          f"P3 runs a ring a thread on {eb.RATE_TILES} tiles; one tile of P2 and of P3 runs "
+          f"more than 4 blocks (P2 {p2['grid']}, P3 {p3_tile['grid']}, split {p3_tile['split']})")
+    floor = p2["launch_floor_ms"]
+    print(json.dumps({"blocksort_probe_design": {
+        "ce_cluster": {r["tiles"]: r["cluster"] for r in probe_rows if r.get("probe") == "P2"},
+        "ce_clusters_resident": {c: eb.ce_active(c, dev) for c in eb.CE_CLUSTERS},
+        "ce_grid": {r["tiles"]: r["grid"] for r in probe_rows if r.get("probe") == "P2"},
+        "stage_split_and_grid": {t: [eb.ring_split(t, sms), eb.stage_grid(t, eb.ring_split(
+            t, sms))] for t in eb.STAGE_CHECK_TILES},
+        "launch_floor_ms": floor, "cluster_launch_floor_ms": p2["cluster_launch_floor_ms"],
+        "p2_1_tile_ms": p2["ms"], "p2_over_floor": p2["ms"] / floor,
+        "p2_1_tile_ms_by_cluster": p2["ms_by_cluster"],
+        "p2_256_tiles_ms": p2_rate["ms"], "p2_256_tiles_ms_by_cluster": p2_rate["ms_by_cluster"],
+        "p2_256_tiles_copy_ms": p2_rate["copy_ms"],
+        "p3_1_tile_ms": p3_tile["ms"], "p3_over_floor": p3_tile["ms"] / floor,
+        "p3_1_tile_zero_stages_ms": p3_tile["ms_zero_stages"],
+        "p3_1_tile_ms_by_split": p3_tile["ms_by_split"], "p3_256_tiles_ms": p3["ms"],
+        "bound_ms_1_tile": {"p2": p2["bound_ms"], "p3": p3_tile["bound_ms"]}}}))
     p9 = probe_row(probe="P9", dtype="int32", reps=explore_keys16.RATE_REPS[-1])
     br = explore_scan.TWOPASS_BLOCK_ROWS[0]
     p4, p5, p6, p7 = (probe_row(probe=p, block_rows=br) for p in ("P4", "P5", "P6", "P7"))
@@ -1220,6 +1263,8 @@ def run(dev) -> None:
             ("blocksort_stages_kernel", p3, 2 * 4 * tile * explore_blocksort.RATE_TILES,
              explore_blocksort.ALU_OPS_PER_ELEMENT * explore_blocksort.NSTAGE * tile
              * explore_blocksort.RATE_TILES),
+            ("blocksort_stages_split_kernel", p3_tile, 2 * 4 * tile,
+             explore_blocksort.ALU_OPS_PER_ELEMENT * explore_blocksort.NSTAGE * tile),
             ("keys16_stage_kernel", p9, 2 * 4 * n9,
              explore_keys16.stage_ops(torch.int32, explore_keys16.RATE_REPS[-1], n9))):
         rows[name] = dict(ms=r["ms"], plain_ms=r["plain_ms"], bytes=n_bytes, ops=n_ops,
@@ -1279,6 +1324,9 @@ def run(dev) -> None:
           and not any(stage_spills.values()),
           f"P9's int32 and bfloat16 kernels spill no registers (ptxas spill stores in bytes: "
           f"{stage_spills})")
+    check(len(blocksort_spills) == 8 and not any(blocksort_spills.values()),
+          f"P2's two cluster sizes, P3's register kernel and its five splits spill no "
+          f"registers (ptxas spill stores in bytes: {blocksort_spills})")
     kernels = []
     for k in _build.KERNELS:
         r = rows[k.name]

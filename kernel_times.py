@@ -4,7 +4,8 @@ checkout of the repository, on one CUDA card.
 
     python3 kernel_times.py [--root DIR] [--label NAME]
                             [--scan-probes-only | --ce-probe-only |
-                             --keys16-probe-only | --sass]
+                             --keys16-probe-only | --blocksort-probe-only |
+                             --sass]
 
 imports ``tpu_radix_sort_torch`` from DIR (default: beside this script),
 builds its kernels there, and prints one JSON line: the card's name and power
@@ -36,7 +37,13 @@ same columns, every call queued behind a sleep. ``--keys16-probe-only``
 builds only ``explore_keys16.cu`` and times the stage probe P9
 (``explore_keys16.stage_rate``) for its four lane types at reps 16 and
 256 on the probe's 32,768 seeded rows, every call queued behind a sleep,
-beside each case's bound and the plain version's time. ``--sass`` builds the
+beside each case's bound and the plain version's time.
+``--blocksort-probe-only`` builds only ``explore_blocksort.cu`` and times
+P2 (``explore_blocksort.ce_tiles``) and P3 (``stage_tiles``, at 64 and 0
+stages) on 1 and 256 seeded tiles, and, where the checkout has them, the
+launch floor (an empty launch), P2 on one tile in each cluster size and
+P3 on one tile with each split of its rings, every call queued behind a
+sleep. ``--sass`` builds the
 probes' sources (``explore_ce``, ``explore_blocksort``, ``explore_keys16``)
 and prints, for each of their kernels, the count of each SASS opcode that
 ``cuobjdump -sass`` shows (the instruction mix behind the operation counts
@@ -68,6 +75,8 @@ def main() -> int:
                       help="build and time only the compare-exchange probe P1")
     only.add_argument("--keys16-probe-only", action="store_true",
                       help="build and time only the stage probe P9")
+    only.add_argument("--blocksort-probe-only", action="store_true",
+                      help="build and time only the one-tile probes P2 and P3")
     only.add_argument("--sass", action="store_true",
                       help="print the SASS opcode counts of the probes' kernels")
     args = ap.parse_args()
@@ -86,16 +95,19 @@ def main() -> int:
     sources = (["explore_scan", "explore_keys16"] if args.scan_probes_only
                else ["explore_ce"] if args.ce_probe_only
                else ["explore_keys16"] if args.keys16_probe_only
+               else ["explore_blocksort"] if args.blocksort_probe_only
                else ["explore_ce", "explore_blocksort", "explore_keys16"] if args.sass else None)
     _build.build(sources)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
     label = args.label or args.root
-    if args.scan_probes_only or args.ce_probe_only or args.keys16_probe_only:
+    if (args.scan_probes_only or args.ce_probe_only or args.keys16_probe_only
+            or args.blocksort_probe_only):
         key, fn = (("scan_probes", scan_probes) if args.scan_probes_only
                    else ("ce_probe", ce_probe) if args.ce_probe_only
-                   else ("keys16_probe", keys16_probe))
+                   else ("keys16_probe", keys16_probe) if args.keys16_probe_only
+                   else ("blocksort_probe", blocksort_probe))
         print(json.dumps({"kernel_times": {"label": label, "card": smi,
                                            key: fn(torch, device_time)}}), flush=True)
         return 0
@@ -272,6 +284,36 @@ def keys16_probe(torch, device_time) -> dict:
 
     return {f"{str(dt).removeprefix('torch.')}_{reps}": ek.stage_rate(dt, reps, device="cuda")
             for dt in ek.DTYPES for reps in ek.RATE_REPS}
+
+
+def blocksort_probe(torch, device_time) -> dict:
+    """P2 and P3 on 1 and 256 seeded tiles (P3 at 64 and 0 stages) and,
+    where the checkout has them, the launch floor, P2 on one tile in each
+    cluster size the card holds and P3 on one tile with each split; every
+    call queued behind a sleep."""
+    from tpu_radix_sort_torch.benchmarks import explore_blocksort as eb
+
+    def ms(fn, *a):
+        return device_time(fn, *a, warmup=2, iters=20, queued=True) * 1e3
+
+    out = {}
+    for tiles in (1, eb.RATE_TILES):
+        x = eb.random_tiles(tiles, SEED + tiles, "cuda")
+        out[f"p2_{tiles}_ms"] = ms(eb.ce_tiles, x)
+        out[f"p3_{tiles}_ms"] = ms(eb.stage_tiles, x)
+        out[f"p3_{tiles}_zero_stages_ms"] = ms(lambda a: eb.stage_tiles(a, 0), x)
+        if hasattr(eb, "ring_split"):
+            out[f"p2_{tiles}_ms_by_cluster"] = {
+                c: ms(lambda a, c=c: eb.ce_tiles(a, c), x)
+                for c in eb.CE_CLUSTERS if eb.ce_active(c, "cuda") >= 1}
+        if tiles == 1 and hasattr(eb, "ring_split"):
+            out["p3_1_ms_by_split"] = {s: ms(lambda a, s=s: eb.stage_tiles(a, split=s), x)
+                                       for s in eb.RING_SPLITS}
+    if hasattr(eb, "launch_floor_ms"):
+        out["launch_floor_ms"] = eb.launch_floor_ms("cuda")
+        out["cluster_launch_floor_ms"] = {c: eb.launch_floor_ms("cuda", c)
+                                          for c in out["p2_1_ms_by_cluster"]}
+    return out
 
 
 def sass_counts(build, sources) -> dict:

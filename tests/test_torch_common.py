@@ -200,7 +200,8 @@ def test_cpu_runs_launch_no_kernel_and_numpy_needs_a_device(monkeypatch):
         "bitonic_tile_kernel": 0, "bitonic_global_stage_kernel": 0,
         "disorder_kernel": 0, "disorder_cols_kernel": 0, "scan_kernel": 0,
         "digit_histogram_kernel": 0, "reorder_kernel": 0, "explore_ce_kernel": 0,
-        "blocksort_ce_kernel": 0, "blocksort_stages_kernel": 0, "keys16_stage_kernel": 0,
+        "blocksort_ce_kernel": 0, "blocksort_stages_kernel": 0,
+        "blocksort_stages_split_kernel": 0, "keys16_stage_kernel": 0,
         "blocksum_kernel": 0, "addback_kernel": 0, "grid_copy_kernel": 0,
         "chained_scan_kernel": 0, "cummax_kernel": 0}
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

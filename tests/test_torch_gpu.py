@@ -349,16 +349,26 @@ def test_explore_ce_launch_grid(cuda, variant, n_arr, stable):
                 explore_ce.ce_resident(variant, n_arr, stable, form, n)
 
 
-@pytest.mark.parametrize("tiles", [1, 3])
+@pytest.mark.parametrize("tiles", [1, 3, 33])
 def test_explore_blocksort_kernels_match_plain(cuda, tiles):
-    x = explore_blocksort.random_tiles(tiles, tiles, cuda)
-    before = (_build.BLOCKSORT_CE.launches, _build.BLOCKSORT_STAGES.launches)
-    assert torch.equal(explore_blocksort.ce_tiles(x), explore_blocksort.ce_plain(x))
-    for n_stages in (0, 1, 7, explore_blocksort.NSTAGE):
-        assert torch.equal(explore_blocksort.stage_tiles(x, n_stages),
-                           explore_blocksort.stages_plain(x, n_stages)), n_stages
-    assert (_build.BLOCKSORT_CE.launches, _build.BLOCKSORT_STAGES.launches) == (
-        before[0] + 1, before[1] + 4)
+    """P2 in each cluster size the card holds; P3 with every split of its
+    rings, the register kernel (split 1) and the split kernel counted
+    apart."""
+    eb = explore_blocksort
+    x = eb.random_tiles(tiles, tiles, cuda)
+    clusters = [c for c in eb.CE_CLUSTERS if eb.ce_active(c, cuda) >= 1]
+    assert 8 in clusters and eb.ce_cluster(1, cuda) == clusters[-1]
+    kernels = (_build.BLOCKSORT_CE, _build.BLOCKSORT_STAGES, _build.BLOCKSORT_STAGES_SPLIT)
+    before = [k.launches for k in kernels]
+    for cluster in clusters:
+        assert torch.equal(eb.ce_tiles(x, cluster), eb.ce_plain(x)), cluster
+    for n_stages in (0, 1, 7, eb.NSTAGE):
+        for split in eb.RING_SPLITS:
+            assert torch.equal(eb.stage_tiles(x, n_stages, split),
+                               eb.stages_plain(x, n_stages)), (n_stages, split)
+    assert [k.launches - b for k, b in zip(kernels, before)] == [
+        len(clusters), 4, 4 * (len(eb.RING_SPLITS) - 1)]
+    assert eb.launch_floor_ms(cuda) > 0
 
 
 @pytest.mark.parametrize("dtype", explore_keys16.DTYPES, ids=str)

@@ -146,11 +146,15 @@ EXPLORE_CE = Kernel(
     "explore_ce_kernel", "explore_ce", "trs_explore_ce", [_P, _P, _I64, _I32, _I32, _I32, _P],
 )
 BLOCKSORT_CE = Kernel(
-    "blocksort_ce_kernel", "explore_blocksort", "trs_blocksort_ce", [_P, _P, _I64, _P],
+    "blocksort_ce_kernel", "explore_blocksort", "trs_blocksort_ce", [_P, _P, _I64, _I32, _P],
 )
 BLOCKSORT_STAGES = Kernel(
     "blocksort_stages_kernel", "explore_blocksort", "trs_blocksort_stages",
     [_P, _P, _I64, _I32, _P],
+)
+BLOCKSORT_STAGES_SPLIT = Kernel(
+    "blocksort_stages_split_kernel", "explore_blocksort", "trs_blocksort_stages_split",
+    [_P, _P, _I64, _I32, _I32, _P],
 )
 KEYS16_STAGE = Kernel(
     "keys16_stage_kernel", "explore_keys16", "trs_keys16_stage", [_P, _P, _I64, _I32, _I32, _P],
@@ -170,9 +174,12 @@ CHAINED_SCAN = Kernel(
 CUMMAX = Kernel("cummax_kernel", "explore_scan", "trs_cummax", [_P, _I64, _P, _P, _P])
 SORT_KERNELS = (BITONIC_TILE, BITONIC_GLOBAL_STAGE, DISORDER, DISORDER_COLS, SCAN,
                 DIGIT_HISTOGRAM, REORDER)
-PROBE_KERNELS = (EXPLORE_CE, BLOCKSORT_CE, BLOCKSORT_STAGES, KEYS16_STAGE, BLOCKSUM, ADDBACK,
-                 GRID_COPY, CHAINED_SCAN, CUMMAX)
+PROBE_KERNELS = (EXPLORE_CE, BLOCKSORT_CE, BLOCKSORT_STAGES, BLOCKSORT_STAGES_SPLIT,
+                 KEYS16_STAGE, BLOCKSUM, ADDBACK, GRID_COPY, CHAINED_SCAN, CUMMAX)
 KERNELS = SORT_KERNELS + PROBE_KERNELS
+# An empty kernel, a measuring instrument and no port of a TPU kernel: the
+# card's cost of one launch (``explore_blocksort.launch_floor_ms``).
+LAUNCH_FLOOR = Kernel("launch_floor_kernel", "explore_blocksort", "trs_launch_floor", [_I32, _P])
 
 
 def reset_launches() -> None:

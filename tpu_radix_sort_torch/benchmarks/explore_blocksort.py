@@ -17,14 +17,21 @@ one 512 x 128 u32 tile each:
   x <- (min(x, y) where (r // 8) is even, else max(x, y)) + 1 mod 2^32,
   with y as above (:func:`stages_plain`, :func:`stage_tiles`).
 
-A single tile cannot fill the card, so the kernels (``csrc/
-explore_blocksort.cu``) apply the per-tile function to B independent
-tiles: B = 1 for the probe's check and B = 256 (2^24 elements) for a rate.
-Tiles are int32 tensors of u32 patterns, (B, 512, 128) or (512, 128).
+The kernels (``csrc/explore_blocksort.cu``) apply the per-tile function to
+B independent tiles: B = 1, the probe's own shape, and B = 256 (2^24
+elements) for a rate. One tile is spread over the card: P2 runs a tile as
+one thread-block cluster of 8 or 16 blocks (:func:`choose_cluster`), and
+P3 splits each of a tile's 1,024 rings across :func:`ring_split` lanes of
+a warp when the tiles are too few to fill the SMs. An empty kernel gives
+the card's cost of one launch (:func:`launch_floor_ms`), the floor under a
+one-tile time. Tiles are int32 tensors of u32 patterns, (B, 512, 128) or
+(512, 128).
 
 Run on the card: ``python -m tpu_radix_sort_torch.benchmarks.explore_blocksort``.
 """
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
@@ -48,14 +55,64 @@ N = 1 << 24
 # an element a stage, and P3 runs both faster than the lanes could run the
 # two (PERF.md).
 ALU_OPS_PER_ELEMENT = 1
+# P2: blocks of a tile's cluster (8 portable, 16 where the card holds it),
+# and chunks of a block's band of rows: 128 lanes x 2 chunks, 256 threads a
+# block (kCeChunks there).
+CE_CLUSTERS = (8, 16)
+CE_CHUNKS = 2
+# P3: a tile's rings (a lane and a residue r mod 8 each) of 64 slots; the
+# lanes of a warp that share a ring (S of the split kernel; 1, a ring a
+# thread, is the register kernel), 256 threads a block (kStageThreads).
+RINGS = LANES * SHIFT
+RING_SPLITS = (1, 2, 4, 8, 16, 32)
+STAGE_THREADS = 256
+# The card's checks: P2's tile counts, P3's tile counts and stage counts
+# (every split at each); each kernel against its plain version.
+CE_CHECK_TILES = (1, 3, RATE_TILES)
+STAGE_CHECK_TILES = (1, 2, 3, 33, RATE_TILES)
+CHECK_STAGES = (0, 1, NSTAGE - 1, NSTAGE)
 
 
 def stage_bound_ms(tiles: int, n_stages: int = NSTAGE) -> tuple[float, str]:
     """P3's least time on the card: its tiles read once and written once,
-    or its stages' integer operations, whichever is longer; and which."""
+    or its stages' integer operations, whichever is longer; and which. P2's
+    is that of one stage: one minimum or maximum an element."""
     t_bytes = tiles * 2 * 4 * ROWS * LANES / HBM_BYTES_PER_S * 1e3
     t_ops = tiles * ROWS * LANES * n_stages * ALU_OPS_PER_ELEMENT / ALU_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def choose_cluster(tiles: int, active: dict[int, int]) -> int:
+    """P2's cluster size for `tiles` tiles on a card that holds
+    ``active[c]`` clusters of c blocks at once: the largest size whose
+    clusters for all the tiles are resident at once (a tile over the most
+    SMs), else the smallest. Once tiles wait in waves, the smaller
+    cluster's longer bands keep more bytes in flight (on the H100, 77
+    clusters of 8 blocks of 36 KB of rows against 49 of 16 blocks of 20 KB)
+    and read fewer rows twice (the 8 above each band)."""
+    if tiles < 1:
+        raise ValueError("choose_cluster takes tiles >= 1")
+    usable = [c for c in CE_CLUSTERS if active.get(c, 0) >= 1]
+    if not usable:
+        raise RuntimeError(f"no cluster of {CE_CLUSTERS} blocks of P2 fits on the card")
+    fits = [c for c in usable if active[c] >= tiles]
+    return max(fits) if fits else min(usable)
+
+
+def ring_split(tiles: int, sms: int) -> int:
+    """The lanes of a warp that share each of P3's rings on `tiles` tiles
+    on a card of `sms` SMs: the least split of ``RING_SPLITS`` whose blocks
+    (:func:`stage_grid`) cover every SM, else the largest. 1 keeps a ring
+    a thread; a larger split only adds a shuffle a stage once the SMs are
+    full."""
+    if tiles < 1 or sms < 1:
+        raise ValueError("ring_split takes tiles >= 1 and sms >= 1")
+    return next((s for s in RING_SPLITS if stage_grid(tiles, s) >= sms), RING_SPLITS[-1])
+
+
+def stage_grid(tiles: int, split: int) -> int:
+    """P3's blocks on `tiles` tiles: a thread for each ring's `split` parts."""
+    return tiles * RINGS * split // STAGE_THREADS
 
 
 def _tiles(x: torch.Tensor) -> torch.Tensor:
@@ -96,27 +153,83 @@ def _stream(x):
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
-def ce_tiles(x: torch.Tensor) -> torch.Tensor:
-    """P2's kernel on each tile. A CPU tensor runs :func:`ce_plain`."""
+def ce_active(cluster: int, device="cuda") -> int:
+    """The clusters of `cluster` blocks of P2 that the CUDA device holds at
+    once, from ``cudaOccupancyMaxActiveClusters`` (0: none)."""
+    if cluster not in CE_CLUSTERS:
+        raise ValueError(f"P2 runs in clusters of {CE_CLUSTERS} blocks, not {cluster}")
+    dev = interop.resolve_device(device)
+    if dev.type != "cuda":
+        raise ValueError("ce_active asks a CUDA device")
+    lib = _build.library("explore_blocksort")
+    active = ctypes.c_int()
+    with torch.cuda.device(dev):
+        err = lib.trs_blocksort_ce_active(cluster, ctypes.byref(active))
+    if err:
+        raise RuntimeError(f"cudaOccupancyMaxActiveClusters failed for clusters of {cluster}: "
+                           f"CUDA error {err} ({lib.trs_error_string(err).decode()})")
+    return active.value
+
+
+def ce_cluster(tiles: int, device="cuda") -> int:
+    """P2's cluster size for `tiles` tiles on the CUDA device
+    (:func:`choose_cluster` on its :func:`ce_active` counts)."""
+    return choose_cluster(tiles, {c: ce_active(c, device) for c in CE_CLUSTERS})
+
+
+def ce_tiles(x: torch.Tensor, cluster: int | None = None) -> torch.Tensor:
+    """P2's kernel on each tile, a tile a cluster of `cluster` blocks
+    (default :func:`ce_cluster`). A CPU tensor runs :func:`ce_plain`."""
     t = _tiles(x)
+    if cluster is not None and cluster not in CE_CLUSTERS:
+        raise ValueError(f"P2 runs in clusters of {CE_CLUSTERS} blocks, not {cluster}")
     if t.device.type == "cpu":
         return ce_plain(x)
+    if t.data_ptr() % 16:
+        raise ValueError("P2's kernel copies its tiles in bulk: they must be 16-byte aligned")
     out = torch.empty_like(t)
-    _build.BLOCKSORT_CE(t.data_ptr(), out.data_ptr(), t.shape[0], _stream(t))
+    if cluster is None:
+        cluster = ce_cluster(t.shape[0], t.device)
+    _build.BLOCKSORT_CE(t.data_ptr(), out.data_ptr(), t.shape[0], cluster, _stream(t))
     return out.view(x.shape)
 
 
-def stage_tiles(x: torch.Tensor, n_stages: int = NSTAGE) -> torch.Tensor:
-    """P3's kernel: `n_stages` stages on each tile, resident in registers.
-    A CPU tensor runs :func:`stages_plain`."""
+def stage_tiles(x: torch.Tensor, n_stages: int = NSTAGE,
+                split: int | None = None) -> torch.Tensor:
+    """P3's kernel: `n_stages` stages on each tile, resident in registers,
+    each ring across `split` lanes of a warp (default :func:`ring_split`
+    for the tiles on this card). A CPU tensor runs :func:`stages_plain`."""
     t = _tiles(x)
     if n_stages < 0:
         raise ValueError("n_stages must be >= 0")
+    if split is not None and split not in RING_SPLITS:
+        raise ValueError(f"a ring splits across {RING_SPLITS} lanes, not {split}")
     if t.device.type == "cpu":
         return stages_plain(x, n_stages)
+    if split is None:
+        split = ring_split(t.shape[0], torch.cuda.get_device_properties(
+            t.device).multi_processor_count)
     out = torch.empty_like(t)
-    _build.BLOCKSORT_STAGES(t.data_ptr(), out.data_ptr(), t.shape[0], n_stages, _stream(t))
+    if split == 1:
+        _build.BLOCKSORT_STAGES(t.data_ptr(), out.data_ptr(), t.shape[0], n_stages, _stream(t))
+    else:
+        _build.BLOCKSORT_STAGES_SPLIT(t.data_ptr(), out.data_ptr(), t.shape[0], n_stages, split,
+                                      _stream(t))
     return out.view(x.shape)
+
+
+def launch_floor_ms(device="cuda", cluster: int = 1) -> float:
+    """The card's time for one empty launch (one block of 32 threads, or
+    one cluster of `cluster` such blocks), timed as the probes are: calls
+    queued behind a sleep."""
+    if cluster != 1 and cluster not in CE_CLUSTERS:
+        raise ValueError(f"an empty launch of 1 or {CE_CLUSTERS} blocks, not {cluster}")
+    anchor = torch.empty(1, device=interop.resolve_device(device))  # device_time's tensor
+
+    def empty(a):
+        _build.LAUNCH_FLOOR(cluster, _stream(a))
+
+    return device_time(empty, anchor, queued=True) * 1e3
 
 
 def random_tiles(tiles: int, seed: int, device) -> torch.Tensor:
@@ -175,49 +288,82 @@ def library_lines(device="cuda", seed=0) -> list[dict]:
 
 
 def bench(device="cuda", seed=0) -> list[dict]:
-    """P2 on one tile; P3 on one tile and on 256, with its 0-stage time;
-    each beside its plain version's time and its bound."""
+    """P2 and P3 on one tile and on 256, P3 also with no stages; each beside
+    its plain version's time, its bound and the launch floor (P2 also
+    beside a ``copy_`` of its tiles, the time of its bytes), with the
+    launch's shape; P2 also in each cluster size the card holds, and P3
+    on one tile with each split."""
     dev = interop.resolve_device(device)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    floor = launch_floor_ms(dev)
+    floors = {c: launch_floor_ms(dev, c) for c in CE_CLUSTERS if ce_active(c, dev) >= 1}
     x = random_tiles(1, seed, dev)
     out = ce_tiles(x)
     print("sanity kernel ok:", out[0, 0, :3].view(torch.uint32).cpu().numpy(), flush=True)
-    tile_bytes = 2 * 4 * ROWS * LANES
-    rows = [{"probe": "P2", "tiles": 1,
-             "ms": device_time(ce_tiles, x, queued=True) * 1e3,
-             "plain_ms": device_time(ce_plain, x, iters=3) * 1e3,
-             "bound_ms": tile_bytes / HBM_BYTES_PER_S * 1e3}]
-    for tiles in (1, RATE_TILES):
-        xt = x if tiles == 1 else random_tiles(tiles, seed + 1, dev)
+    print(f"launch floor: {floor:.5f} ms (one block); one cluster, by its blocks: {floors}",
+          flush=True)
+    rows, inputs = [], {1: x, RATE_TILES: random_tiles(RATE_TILES, seed + 1, dev)}
+    for tiles, xt in inputs.items():
+        cluster = ce_cluster(tiles, dev)
+        ms = device_time(ce_tiles, xt, queued=True) * 1e3
+        b_ms, b_by = stage_bound_ms(tiles, 1)
+        y = torch.empty_like(xt)
+        row = {"probe": "P2", "tiles": tiles, "cluster": cluster, "grid": tiles * cluster,
+               "ms": ms, "plain_ms": device_time(ce_plain, xt, iters=3) * 1e3,
+               "copy_ms": device_time(y.copy_, xt, queued=True) * 1e3,
+               "bound_ms": b_ms, "bound_by": b_by, "launch_floor_ms": floor,
+               "cluster_launch_floor_ms": floors[cluster],
+               "ms_by_cluster": {c: device_time(lambda a, c=c: ce_tiles(a, c), xt,
+                                                queued=True) * 1e3 for c in floors}}
+        print(f"P2 ({tiles} tiles, clusters of {cluster}): {ms:.5f} ms, "
+              f"{ms / floor:.2f}x the launch floor", flush=True)
+        rows.append(row)
+    for tiles, xt in inputs.items():
+        split = ring_split(tiles, sms)
         ms = device_time(stage_tiles, xt, queued=True) * 1e3
         ms0 = device_time(lambda a: stage_tiles(a, 0), xt, queued=True) * 1e3
         nelem = tiles * ROWS * LANES
         per_stage = ms / NSTAGE
-        print(f"compare-exchange stage ({tiles} tiles): {per_stage * 1e3:.3f} us per stage of "
-              f"{nelem} elems -> {nelem / per_stage / 1e6:.1f} Gelem/s/stage "
-              f"(0 stages {ms0:.4f} ms)", flush=True)
+        print(f"compare-exchange stage ({tiles} tiles, rings across {split} lanes): "
+              f"{per_stage * 1e3:.3f} us per stage of {nelem} elems -> "
+              f"{nelem / per_stage / 1e6:.1f} Gelem/s/stage (0 stages {ms0:.4f} ms; "
+              f"{ms / floor:.2f}x the launch floor)", flush=True)
         b_ms, b_by = stage_bound_ms(tiles)
-        rows.append({"probe": "P3", "tiles": tiles, "ms": ms, "ms_zero_stages": ms0,
-                     "us_per_stage": per_stage * 1e3,
-                     "gelem_stages_per_s": nelem / per_stage / 1e6,
-                     "plain_ms": device_time(stages_plain, xt, warmup=1, iters=3) * 1e3,
-                     "bound_ms": b_ms, "bound_by": b_by})
+        row = {"probe": "P3", "tiles": tiles, "split": split, "grid": stage_grid(tiles, split),
+               "ms": ms, "ms_zero_stages": ms0, "us_per_stage": per_stage * 1e3,
+               "gelem_stages_per_s": nelem / per_stage / 1e6,
+               "plain_ms": device_time(stages_plain, xt, warmup=1, iters=3) * 1e3,
+               "bound_ms": b_ms, "bound_by": b_by, "launch_floor_ms": floor}
+        if tiles == 1:
+            row["ms_by_split"] = {s: device_time(lambda a, s=s: stage_tiles(a, split=s), xt,
+                                                 queued=True) * 1e3 for s in RING_SPLITS}
+        rows.append(row)
     return rows
 
 
 def check(device="cuda", seed=0) -> int:
-    """Hold P2 (one tile, and 3) and P3 (one tile, 256, and 0 stages)
-    against their plain versions byte for byte; raise on a difference.
-    Returns the largest |difference| (0)."""
+    """Hold P2 (``CE_CHECK_TILES``, in the default cluster and in each size
+    the card holds) and P3 (``STAGE_CHECK_TILES`` at ``CHECK_STAGES``, with
+    the host's split and with every split) against their plain versions
+    byte for byte; raise on a difference. Returns the largest |difference|
+    (0)."""
     dev = interop.resolve_device(device)
-    for tiles in (1, 3):
+    clusters = [c for c in CE_CLUSTERS if ce_active(c, dev) >= 1]
+    for tiles in CE_CHECK_TILES:
         x = random_tiles(tiles, seed + tiles, dev)
-        if not torch.equal(ce_tiles(x), ce_plain(x)):
-            raise AssertionError(f"P2 differs from its plain version on {tiles} tiles")
-    for tiles, n_stages in ((1, NSTAGE), (RATE_TILES, NSTAGE), (RATE_TILES, 0)):
+        want = ce_plain(x)
+        for cluster in (None, *clusters):
+            if not torch.equal(ce_tiles(x, cluster), want):
+                raise AssertionError(f"P2 differs from its plain version on {tiles} tiles "
+                                     f"(clusters of {cluster or ce_cluster(tiles, dev)})")
+    for tiles in STAGE_CHECK_TILES:
         x = random_tiles(tiles, seed + tiles, dev)
-        if not torch.equal(stage_tiles(x, n_stages), stages_plain(x, n_stages)):
-            raise AssertionError(f"P3 differs from its plain version on {tiles} tiles, "
-                                 f"{n_stages} stages")
+        for n_stages in CHECK_STAGES:
+            want = stages_plain(x, n_stages)
+            for split in (None, *RING_SPLITS):
+                if not torch.equal(stage_tiles(x, n_stages, split), want):
+                    raise AssertionError(f"P3 differs from its plain version on {tiles} tiles, "
+                                         f"{n_stages} stages, split {split}")
     return 0
 
 
