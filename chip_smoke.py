@@ -8,8 +8,9 @@ Run from the root of a checkout on a machine with the card:
 It builds the kernels from ``tpu_radix_sort_torch/csrc`` (nvcc, sm_90a),
 holds each kernel against its plain PyTorch version on the card, drives the
 public entry points at the headline size (bench.py's 2^26 u32 key + rank
-payload) through both sort engines (the bitonic network and
-``method='radix'``), the mid-sort early exit, ``prefix_sum`` and the other
+payload) through both sort engines by name (the bitonic network and
+``method='radix'``) and through ``'auto'``, held to the launches of the
+engine it takes, the mid-sort early exit, ``prefix_sum`` and the other
 options, then 64-bit keys (u64 key + rank, keys-only, float64 total order,
 the 7-column bitonic and 6-column radix paths, the two-column order-check
 gate, ``is_sorted``/``disorder_count``) and bfloat16 keys at 2^26; then,
@@ -125,6 +126,9 @@ SMALL_N = (1 << 16) + 3
 CHECK_N = (1 << 24) + 3  # the order-check kernels against their plain versions
 SLICE_N = 1 << 24  # the batched and segmented sorts (benchmarks/workloads.py)
 REPLAY_REPEATS = 5  # kernel calls timed per replayed call; the median counts
+# the engines each option case runs through: both by name, then what 'auto'
+# takes at that size (held to the same launches as that engine's run)
+ENGINES = ("bitonic", "radix", "auto")
 # the K1 instances (columns, key words) that the segmented sorts added
 NEW_K1 = ((4, 4), (5, 4), (6, 4), (7, 4), (8, 1), (8, 2), (8, 3), (8, 4))
 SEED = 20261016
@@ -459,32 +463,49 @@ def run(dev) -> None:
     keys = rand_u32(HEADLINE_N)
     iota = torch.arange(HEADLINE_N, dtype=torch.int32, device=dev).view(torch.uint32)
     ok, ov = drive("headline k+v 2^26",
-                   lambda: trt.sort(keys, iota, values_are_ranks=True))
+                   lambda: trt.sort(keys, iota, values_are_ranks=True, method="bitonic"))
     rk, rv = torch_ref(keys)
     check(same(ok, rk) and same(ov, rv),
-          "sort(keys, iota, values_are_ranks=True), 2^26 u32 == torch.sort(stable=True)")
+          "sort(keys, iota, values_are_ranks=True, method='bitonic'), 2^26 u32 == "
+          "torch.sort(stable=True)")
     peak_headline = torch.cuda.max_memory_allocated()
-    ko = drive("keys-only 2^26", lambda: trt.sort(keys))
-    check(same(ko, rk), "keys-only sort, 2^26 u32 == torch.sort")
+    ko = drive("keys-only 2^26", lambda: trt.sort(keys, method="bitonic"))
+    check(same(ko, rk), "keys-only sort, method='bitonic', 2^26 u32 == torch.sort")
     del ko
+    # 'auto' at the headline size: the radix engine, 16 passes of K5, K4, K6
+    aok, aov = drive("auto k+v 2^26", lambda: trt.sort(keys, iota, values_are_ranks=True))
+    d = per_case["auto k+v 2^26"]
+    check(same(aok, rk) and same(aov, rv) and d["digit_histogram_kernel"] == 16
+          and d["scan_kernel"] == 16 and d["reorder_kernel"] == 16
+          and d["bitonic_tile_kernel"] == 0 and d["bitonic_global_stage_kernel"] == 0,
+          "sort(keys, iota, values_are_ranks=True), 2^26 u32: 'auto' takes the radix engine "
+          "(16 K5, 16 K4, 16 K6, no K1) == torch.sort(stable=True)")
+    del aok, aov
+
+    def auto_took(fmt, engine):
+        """The case `fmt` with 'auto' launched what it did with `engine`."""
+        a, e = per_case[fmt.format("auto")], per_case[fmt.format(engine)]
+        check(a == e, f"{fmt.format('auto')}: 'auto' takes {engine!r} (the same launches)")
 
     sk = rand_u32(SPLIT_N, 1 << 20)
     sv = torch.arange(SPLIT_N, dtype=torch.int32, device=dev).view(torch.uint32)
-    sok, sov = drive("split k+v 40M", lambda: trt.sort(sk, sv, values_are_ranks=True))
+    sok, sov = drive("split k+v 40M", lambda: trt.sort(sk, sv, values_are_ranks=True,
+                                                       method="bitonic"))
     gk, gv = golden_sort(sk.cpu().numpy(), sv.cpu().numpy())
     check(np.array_equal(sok.cpu().numpy(), gk) and np.array_equal(sov.cpu().numpy(), gv),
           "sort of n = 40,000,000 (split path: prefix + remainder + merge) == golden")
     del sk, sv, sok, sov, gk, gv
 
     cok, cov = drive("check_order sorted 2^26", lambda: trt.sort(
-        ok, ov, values_are_ranks=True, check_order=True))
+        ok, ov, values_are_ranks=True, check_order=True, method="bitonic"))
     d = per_case["check_order sorted 2^26"]
     check(same(cok, ok) and same(cov, ov) and d["disorder_kernel"] == 2
           and d["bitonic_tile_kernel"] == 0 and d["bitonic_global_stage_kernel"] == 0,
           "check_order=True on sorted input: K2 gates, K1 does not run")
     del cok, cov
     small = keys[:OPTION_N]
-    uok = drive("check_order unsorted 2^22", lambda: trt.sort(small, check_order=True))
+    uok = drive("check_order unsorted 2^22",
+                lambda: trt.sort(small, check_order=True, method="bitonic"))
     d = per_case["check_order unsorted 2^22"]
     check(same(uok, torch_ref(small)[0]) and d["disorder_kernel"] >= 1
           and d["bitonic_tile_kernel"] >= 1,
@@ -502,7 +523,7 @@ def run(dev) -> None:
         ("descending", dict(descending=True), hk, hv, dict(descending=True)),
         ("total_order f32", dict(total_order=True), f, hv, dict(total_order=True)),
     ]
-    for method in ("auto", "radix"):
+    for method in ENGINES:
         for label, kw, k_np, v_np, gkw in cases:
             args = (k_np,) if v_np is None else (k_np, v_np)
             out = drive(f"{label} {method} 2^22", lambda: trt.sort(*args, method=method, **kw))
@@ -514,6 +535,8 @@ def run(dev) -> None:
                 good = all(np.array_equal(o.cpu().numpy().view(np.uint32), w.view(np.uint32))
                            for o, w in zip(out, want))
             check(good, f"sort {label}, method {method}, 2^22 == golden")
+    for label, *_ in cases:
+        auto_took(f"{label} {{}} 2^22", "bitonic")  # under 3 * 2^21 u32 keys
 
     # the radix engine at the headline size (values_are_ranks does not apply)
     rok, rov = drive("radix k+v 2^26", lambda: trt.sort(keys, iota, method="radix"))
@@ -549,7 +572,7 @@ def run(dev) -> None:
     k64v = k64.view(torch.int64)
     k64v[: HEADLINE_N // 2] = (k64v[: HEADLINE_N // 2] & 0xFFFFFFFF) | (0x1BCD1234 << 32)
     r64k, r64v = ref64(k64)
-    for method in ("auto", "radix"):
+    for method in ENGINES:
         o = drive(f"u64 k+rank {method} 2^26",
                   lambda: trt.sort(k64, iota, values_are_ranks=True, method=method))
         check(same(o[0], r64k) and same(o[1], r64v),
@@ -559,25 +582,29 @@ def run(dev) -> None:
         check(same(o, r64k), f"sort(u64 keys, method={method!r}), 2^26 == torch.sort")
     check(per_case["u64 keys-only radix 2^26"]["digit_histogram_kernel"] == 32,
           "the 64-bit radix sort runs 32 passes")
+    auto_took("u64 k+rank {} 2^26", "radix")
+    auto_took("u64 keys-only {} 2^26", "radix")
     f64 = torch.randn(HEADLINE_N, dtype=torch.float64, device=dev, generator=gen) * 1e6
     f64[::1000] = float("inf")
     f64[7::1000] = -float("inf")
     rf64 = torch.sort(f64, stable=True)[0]
-    for method in ("auto", "radix"):
+    for method in ENGINES:
         o = drive(f"f64 total_order {method} 2^26",
                   lambda: trt.sort(f64, total_order=True, method=method))
         check(same(o, rf64), f"sort(f64, total_order=True, method={method!r}), 2^26 "
               "== torch.sort of the floats")
+    auto_took("f64 total_order {} 2^26", "radix")
     del f64, rf64, o
     wk, wv = k64[:OPTION_N], rand_u64(OPTION_N)
     gk, gv = golden_sort(wk.cpu().numpy(), wv.cpu().numpy(), bit_count=40)
-    for method in ("auto", "radix"):
+    for method in ENGINES:
         o = drive(f"u64 bit_count=40 u64 values {method} 2^22",
                   lambda: trt.sort(wk, wv, bit_count=40, method=method))
         check(np.array_equal(o[0].cpu().numpy(), gk) and np.array_equal(o[1].cpu().numpy(), gv),
               f"sort(u64 keys, u64 values, bit_count=40, method={method!r}), 2^22 == golden "
               "(7 columns through K1, 6 through K6)")
-    for method in ("auto", "radix"):
+    auto_took("u64 bit_count=40 u64 values {} 2^22", "bitonic")  # under 3 * 2^21 u64 keys
+    for method in ENGINES:
         case = f"u64 check_order sorted {method} 2^26"
         o = drive(case, lambda: trt.sort(r64k, check_order=True, method=method))
         d = per_case[case]
@@ -586,9 +613,20 @@ def run(dev) -> None:
                                           "digit_histogram_kernel", "reorder_kernel")),
               f"u64 check_order=True on sorted input, method={method!r}: K3 gates, "
               "K1/K5/K6 do not run")
+    auto_took("u64 check_order sorted {} 2^26", "radix")
     _, lo_idx = torch.sort(k64v & 0xFFFFFFFF, stable=True)
-    lo_sorted = drive("u64 bit_count=32 2^26", lambda: trt.sort(k64, bit_count=32))
-    check(same(lo_sorted, k64v[lo_idx]), "sort(u64 keys, bit_count=32), 2^26 == torch.sort of lo")
+    for method in ENGINES:
+        # one key column (lo,), the full key carried as (hi, lo)
+        lo_sorted = drive(f"u64 bit_count=32 {method} 2^26",
+                          lambda: trt.sort(k64, bit_count=32, method=method))
+        check(same(lo_sorted, k64v[lo_idx]),
+              f"sort(u64 keys, bit_count=32, method={method!r}), 2^26 == torch.sort of lo")
+    d = per_case["u64 bit_count=32 bitonic 2^26"]
+    check(d["bitonic_tile_kernel"] >= 1 and d["digit_histogram_kernel"] == 0,
+          "u64 bit_count=32, method='bitonic': K1 sorts the one key column")
+    check(per_case["u64 bit_count=32 radix 2^26"]["digit_histogram_kernel"] == 16,
+          "u64 bit_count=32, method='radix': 16 passes over the one key column")
+    auto_took("u64 bit_count=32 {} 2^26", "radix")
     case = "u64 check_order sorted bit_count=32 2^26"
     o = drive(case, lambda: trt.sort(lo_sorted, bit_count=32, check_order=True))
     d = per_case[case]
@@ -610,7 +648,7 @@ def run(dev) -> None:
     _, idx16 = torch.sort(b16.view(torch.int16).to(torch.int32) & 0xFFFF, stable=True)
     rb_k, rb_v = b16[idx16], idx16.to(torch.int32).view(torch.uint32)
     del idx16
-    for method in ("auto", "radix"):
+    for method in ENGINES:
         o = drive(f"bf16 keys-only {method} 2^26", lambda: trt.sort(b16, method=method))
         check(same(o, rb_k), f"sort(bf16 keys, method={method!r}), 2^26 == torch.sort of "
               "the u16 patterns")
@@ -620,14 +658,17 @@ def run(dev) -> None:
               f"sort(bf16 keys, iota, method={method!r}), 2^26 == torch.sort(stable=True)")
     check(per_case["bf16 keys-only radix 2^26"]["digit_histogram_kernel"] == 8,
           "the 16-bit radix sort runs 8 passes")
+    auto_took("bf16 keys-only {} 2^26", "radix")
+    auto_took("bf16 k+iota {} 2^26", "radix")
     u16 = (small.cpu().numpy() >> np.uint32(16)).astype(np.uint16)
-    for method in ("auto", "radix"):
+    for method in ENGINES:
         o = drive(f"u16 count < n bit_count=12 {method} 2^22", lambda: trt.sort(
             u16, hv, count=cnt, bit_count=12, descending=True, method=method))
         want = golden_sort(u16, hv, count=cnt, bit_count=12, descending=True)
         check(all(np.array_equal(a.cpu().numpy(), w) for a, w in zip(o, want)),
               f"sort(u16 keys, count < n, bit_count=12, descending, method={method!r}), "
               "2^22 == golden")
+    auto_took("u16 count < n bit_count=12 {} 2^22", "radix")
     del o, u16
 
     # prefix_sum at the headline size
@@ -732,9 +773,12 @@ def run(dev) -> None:
 
     # ---- times ------------------------------------------------------------
     phase_mark("times")
-    sort_ms = device_time(lambda k, v: trt.sort(k, v, values_are_ranks=True),
+    sort_ms = device_time(lambda k, v: trt.sort(k, v, values_are_ranks=True, method="bitonic"),
                           keys, iota, warmup=2, iters=10) * 1e3
-    keys_only_ms = device_time(trt.sort, keys, warmup=2, iters=10) * 1e3
+    keys_only_ms = device_time(lambda k: trt.sort(k, method="bitonic"),
+                               keys, warmup=2, iters=10) * 1e3
+    auto_ms = device_time(lambda k, v: trt.sort(k, v, values_are_ranks=True),
+                          keys, iota, warmup=2, iters=10) * 1e3
     lib_ms = device_time(
         lambda k: torch.sort(common.bias_i32(k.view(torch.int32)), stable=True),
         keys, warmup=2, iters=10) * 1e3
@@ -756,8 +800,9 @@ def run(dev) -> None:
     w16 = b16.view(torch.int16).to(torch.int32) & 0xFFFF
     wide = {
         "n": nh,
-        "ms": t_ms(lambda k, v: trt.sort(k, v, values_are_ranks=True), k64, iota),
-        "keys_only_ms": t_ms(trt.sort, k64),
+        "ms": t_ms(lambda k, v: trt.sort(k, v, values_are_ranks=True, method="bitonic"),
+                   k64, iota),
+        "keys_only_ms": t_ms(lambda k: trt.sort(k, method="bitonic"), k64),
         "radix_ms": t_ms(lambda k, v: trt.sort(k, v, method="radix"), k64, iota),
         "radix_keys_only_ms": t_ms(lambda k: trt.sort(k, method="radix"), k64),
         "library_ms": t_ms(lambda k: torch.sort(k.view(torch.int64) ^ common.SIGN_I64,
@@ -769,15 +814,16 @@ def run(dev) -> None:
         "radix_engine_bound_ms": 32 * (bound(4 * nh, 0)[0] + bound(2 * 3 * 4 * nh, 0)[0]),
         "radix_keys_only_engine_bound_ms": 32 * (bound(4 * nh, 0)[0]
                                                  + bound(2 * 2 * 4 * nh, 0)[0]),
-        "launches_per_sort": per_case["u64 k+rank auto 2^26"],
-        "launches_per_keys_only_sort": per_case["u64 keys-only auto 2^26"],
+        "launches_per_sort": per_case["u64 k+rank bitonic 2^26"],
+        "launches_per_keys_only_sort": per_case["u64 keys-only bitonic 2^26"],
         "radix_launches_per_sort": per_case["u64 k+rank radix 2^26"],
-        "launches_per_gate": per_case["u64 check_order sorted auto 2^26"],
+        "launches_per_gate": per_case["u64 check_order sorted bitonic 2^26"],
     }
     keys16 = {
         "n": nh, "dtype": "bfloat16",
-        "ms": t_ms(lambda k, v: trt.sort(k, v, values_are_ranks=True), b16, iota),
-        "keys_only_ms": t_ms(trt.sort, b16),
+        "ms": t_ms(lambda k, v: trt.sort(k, v, values_are_ranks=True, method="bitonic"),
+                   b16, iota),
+        "keys_only_ms": t_ms(lambda k: trt.sort(k, method="bitonic"), b16),
         "radix_ms": t_ms(lambda k, v: trt.sort(k, v, method="radix"), b16, iota),
         "radix_keys_only_ms": t_ms(lambda k: trt.sort(k, method="radix"), b16),
         "library_ms": t_ms(lambda w: torch.sort(w, stable=True), w16),
@@ -786,8 +832,8 @@ def run(dev) -> None:
         "keys_only_bound_ms": bound(2 * 2 * nh, 0)[0],
         "radix_engine_bound_ms": 8 * (bound(4 * nh, 0)[0] + bound(2 * 2 * 4 * nh, 0)[0]),
         "radix_keys_only_engine_bound_ms": 8 * (bound(4 * nh, 0)[0] + bound(2 * 4 * nh, 0)[0]),
-        "launches_per_sort": per_case["bf16 k+iota auto 2^26"],
-        "launches_per_keys_only_sort": per_case["bf16 keys-only auto 2^26"],
+        "launches_per_sort": per_case["bf16 k+iota bitonic 2^26"],
+        "launches_per_keys_only_sort": per_case["bf16 keys-only bitonic 2^26"],
         "radix_launches_per_sort": per_case["bf16 k+iota radix 2^26"],
     }
     del w16
@@ -1352,7 +1398,7 @@ def run(dev) -> None:
         "launches_per_sort": per_case["headline k+v 2^26"],
         "launches_per_keys_only_sort": per_case["keys-only 2^26"],
         "peak_mem_bytes_headline": peak_headline,
-        "radix_ms": radix_ms, "radix_keys_only_ms": radix_keys_only_ms,
+        "radix_ms": radix_ms, "radix_keys_only_ms": radix_keys_only_ms, "auto_ms": auto_ms,
         "radix_tile": rtile,
         "radix_launches_per_sort": per_case["radix k+v 2^26"],
         "radix_launches_per_keys_only_sort": per_case["radix keys-only 2^26"],
@@ -1841,7 +1887,7 @@ def mesh_phase(dev, sizes=MESH_SIZES):
 PROFILE_N = HEADLINE_N
 DEMO_N = OPTION_N
 DEMO_MESH_N = 1 << 22
-PROFILE_ENGINES = ("auto", "radix")
+PROFILE_ENGINES = ("bitonic", "radix")
 
 
 def profile_sort(dev, method, keys, ranks, log_dir):
@@ -1950,7 +1996,7 @@ def runtime_phase(dev):
         shutil.rmtree(tmp, ignore_errors=True)
     tile = bitonic.resolve_tile(PROFILE_N, 2)
     tiles, globals_ = k1_calls(bitonic.sort_schedule(PROFILE_N, tile))
-    got = profile["auto"]["launches"]
+    got = profile["bitonic"]["launches"]
     check(got.get("bitonic_tile_kernel") == tiles and got.get("bitonic_global_stage_kernel")
           == globals_, f"the traced bitonic sort made the schedule's {tiles} tile and "
           f"{globals_} global K1 launches at tile {tile}")

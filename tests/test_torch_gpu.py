@@ -105,12 +105,13 @@ def test_sort_on_card_matches_golden(cuda, monkeypatch):
         v = np.arange(n, dtype=np.uint32)
         for kw in ({}, {"values_are_ranks": True}, {"bit_count": 8},
                    {"descending": True}, {"count": n // 3}, {"check_order": True}):
-            ok, ov = trt.sort(k, v, device=cuda, tile=512, **kw)
+            ok, ov = trt.sort(k, v, device=cuda, tile=512, method="bitonic", **kw)
             gk, gv = golden_sort(k, v, **{a: b for a, b in kw.items()
                                           if a in ("bit_count", "descending", "count")})
             assert np.array_equal(ok.cpu().numpy(), gk), (n, kw)
             assert np.array_equal(ov.cpu().numpy(), gv), (n, kw)
-        assert np.array_equal(trt.sort(k, device=cuda).cpu().numpy(), golden_sort(k))
+        assert np.array_equal(trt.sort(k, device=cuda, method="bitonic").cpu().numpy(),
+                              golden_sort(k))
         assert trt.is_sorted(np.sort(k), device=cuda)
         assert not trt.is_sorted(k, device=cuda)
 
@@ -183,6 +184,33 @@ def test_radix_sort_on_card_matches_torch_sort(cuda):
     assert n_run == 2 and torch.equal(out, torch.sort(small)[0])
 
 
+def _launches():
+    return {k.name: k.launches for k in (_build.BITONIC_TILE, _build.BITONIC_GLOBAL_STAGE,
+                                         _build.DIGIT_HISTOGRAM, _build.SCAN, _build.REORDER)}
+
+
+@pytest.mark.parametrize("n,engine", [(sort_mod.AUTO_RADIX_MIN_N[32], "radix"),
+                                      (1 << 10, "bitonic"),
+                                      (sort_mod.AUTO_RADIX_MIN_N[32] - 1, "bitonic")])
+def test_auto_launches_the_engine_of_its_size(cuda, n, engine):
+    """'auto' on u32 key + rank: from the threshold on K5, K4 and K6, 16
+    each, and no K1; below it K1 alone. Both give torch.sort's bytes."""
+    k = torch.randint(-2**31, 2**31 - 1, (n,), dtype=torch.int32, device=cuda)
+    v = torch.arange(n, dtype=torch.int32, device=cuda).view(torch.uint32)
+    before = _launches()
+    ok, ov = trt.sort(k.view(torch.uint32), v, values_are_ranks=True)
+    d = {name: c - before[name] for name, c in _launches().items()}
+    sk, idx = torch.sort(k ^ (-2**31), stable=True)
+    assert torch.equal(ok.view(torch.int32), sk ^ (-2**31))
+    assert torch.equal(ov.view(torch.int32), idx.to(torch.int32))
+    if engine == "radix":
+        assert d == {"bitonic_tile_kernel": 0, "bitonic_global_stage_kernel": 0,
+                     "digit_histogram_kernel": 16, "scan_kernel": 16, "reorder_kernel": 16}
+    else:
+        assert d["bitonic_tile_kernel"] >= 1 and d["digit_histogram_kernel"] == 0
+        assert d["scan_kernel"] == 0 and d["reorder_kernel"] == 0
+
+
 @pytest.mark.parametrize("kind", ["sorted", "reversed", "random", "equal hi", "boundary", "short"])
 def test_disorder_cols_kernel_matches_plain(cuda, kind):
     """K3 on the (hi, lo) view of u64 keys. 'boundary': one inversion whose
@@ -208,7 +236,7 @@ def test_disorder_cols_kernel_matches_plain(cuda, kind):
     assert int(got) == int(np.count_nonzero(u[:-1] > u[1:]))
 
 
-@pytest.mark.parametrize("method", ["auto", "radix"])
+@pytest.mark.parametrize("method", ["auto", "bitonic", "radix"])
 def test_sort64_on_card_matches_torch_sort(cuda, method):
     """u64 key + iota (the 3-column (hi, lo, rank) network) and the 7-column
     / 6-column bit_count=40 path with u64 values, against torch.sort and

@@ -224,16 +224,17 @@ def test_split_path_matches_golden(monkeypatch):
         k = rng.integers(0, 2**64, n, dtype=np.uint64)
         k[: n // 3] = (k[: n // 3] & np.uint64(0xFF)) | (np.uint64(5) << np.uint64(32))
         v = np.arange(n, dtype=np.uint32)
-        assert _eq(trt.sort(k, device="cpu", tile=64), golden_sort(k))
+        assert _eq(trt.sort(k, device="cpu", tile=64, method="bitonic"), golden_sort(k))
         for kw in ({}, {"values_are_ranks": True}):
-            assert _eq(trt.sort(k, v, device="cpu", tile=64, **kw), golden_sort(k, v)), n
+            assert _eq(trt.sort(k, v, device="cpu", tile=64, method="bitonic", **kw),
+                       golden_sort(k, v)), n
         c = 2 * n // 3
-        assert _eq(trt.sort(k, device="cpu", count=c, bit_count=40),
+        assert _eq(trt.sort(k, device="cpu", count=c, bit_count=40, method="bitonic"),
                    golden_sort(k, count=c, bit_count=40))
     k = np.full(1040, 0xFFFFFFFFFFFFFFFF, dtype=np.uint64)
     k[rng.integers(0, 1040, 200)] = rng.integers(0, 2**64, 200, dtype=np.uint64)
     v = np.arange(1040, dtype=np.uint32)
-    assert _eq(trt.sort(k, v, device="cpu"), golden_sort(k, v))
+    assert _eq(trt.sort(k, v, device="cpu", method="bitonic"), golden_sort(k, v))
 
 
 @pytest.mark.parametrize("vdtype", [np.uint64, np.int64, np.float64])

@@ -10,14 +10,16 @@ bit pattern or by true total order with `total_order=True`; 16-bit keys
 ``ops/sort64.py``; stable ascending, or stable descending; `check_order`
 early exit.
 
-Engines (`method`): 'bitonic' (the hand-written network, kernel K1; what
-'auto' picks), 'radix' (the 4-way LSD radix sort, kernels K5, K4 and K6,
-``ops/radix.py``), 'xla' (``torch.sort(stable=True)`` on the sign-biased
-int32 view plus a gather of the payloads — the baseline, outside any kernel
-of this package). With `mesh=`, a ``DeviceMesh``, the call is one rank's
-part of a distributed sort (``parallel/``): `method` picks the strategy,
-'mesh' (the compare-split network), 'exchange' (the radix exchange) or
-'auto' (:func:`_resolve_mesh_method`).
+Engines (`method`): 'bitonic' (the hand-written network, kernel K1),
+'radix' (the 4-way LSD radix sort, kernels K5, K4 and K6, ``ops/radix.py``),
+'xla' (``torch.sort(stable=True)`` on the sign-biased int32 view plus a
+gather of the payloads — the baseline, outside any kernel of this package).
+'auto' takes the radix engine from `AUTO_RADIX_MIN_N` sorted keys of the
+key's width on (3 * 2^21 for 32-bit keys), and the network below
+(:func:`_resolve_method`). With `mesh=`, a ``DeviceMesh``, the call is one
+rank's part of a distributed sort (``parallel/``): `method` picks the
+strategy, 'mesh' (the compare-split network), 'exchange' (the radix
+exchange) or 'auto' (:func:`_resolve_mesh_method`).
 
 Device policy: a tensor runs where it lies; numpy or list input goes to the
 CUDA card unless `device=` names another (see ``utils/interop.py``).
@@ -38,6 +40,14 @@ _MESH_METHODS = ("auto", "mesh", "exchange")
 # separately and combine them with ONE bitonic merge. Module constant so
 # tests can lower it to exercise the path at small sizes.
 SPLIT_MIN_N = 1 << 21
+
+# 'auto' takes the radix engine when the sorted count is at least this, by
+# the key dtype's width in bits, and the bitonic network below: the least
+# size from which radix won at every larger size of the H100 sweep
+# (``benchmarks/engines.py``, PERF.md), with every payload, with and without
+# `check_order`, back to back and, below 2^18, one synchronous call at a time.
+# A module constant so tests can move it.
+AUTO_RADIX_MIN_N = {16: 262_144, 32: 6_291_456, 64: 6_291_456}
 
 
 def _bitonic_pad_sort(key_cols, payloads, *, tie, tile):
@@ -125,10 +135,29 @@ def _bitonic_engine(key_cols, payloads, *, stable, rank_payload, tile):
     return tuple(out[:nk, :n]), tuple(tail)
 
 
-def _resolve_method(method: str) -> str:
+def _takes_tile(method: str, tile) -> bool:
+    """Whether the engine accepts an explicit `tile` (None: its own)."""
+    if tile is None:
+        return True
+    lo, hi = (radix.MIN_TILE, radix.MAX_TILE) if method == "radix" else (2, bitonic.MAX_TILE)
+    return lo <= tile <= hi and not tile & (tile - 1)
+
+
+def _resolve_method(method: str, *, count: int = 0, key_bits: int = 32, tile=None) -> str:
+    """The engine of a sort of `count` keys of a `key_bits`-wide dtype.
+    'auto' takes 'radix' from ``AUTO_RADIX_MIN_N[key_bits]`` keys on and
+    'bitonic' below, unless an explicit `tile` suits only the other.
+
+    `key_bits` is the dtype's width, not the key words the engines sort: a
+    64-bit key with `bit_count` <= 32 runs one key column, as a 32-bit key
+    does, but reads the 64-bit entry (equal to the 32-bit one as measured)."""
     if method not in _METHODS:
         raise ValueError(f"method must be one of {_METHODS}, got {method}")
-    return "bitonic" if method == "auto" else method
+    if method != "auto":
+        return method
+    pick, other = (("radix", "bitonic") if count >= AUTO_RADIX_MIN_N[key_bits]
+                   else ("bitonic", "radix"))
+    return other if not _takes_tile(pick, tile) and _takes_tile(other, tile) else pick
 
 
 def _resolve_mesh_method(method: str, n_dev: int) -> str:
@@ -219,7 +248,9 @@ def sort(
     strictly increasing with every element < 0xFFFFFFFF (e.g. the identity
     iota of an argsort). The network then uses the payload itself as the
     stability tie-break; output is byte-identical. If the promise is broken,
-    equal-key runs come out ordered by value bits instead of by position.
+    equal-key runs come out ordered by value bits instead of by position on
+    the bitonic route; the radix engine, stable by construction, ignores the
+    promise and keeps input order.
 
     `block_rows` and `interpret`, the JAX package's tiling and Pallas knobs,
     are accepted and ignored: the output does not depend on the tile.
@@ -264,7 +295,8 @@ def sort(
                 "values_are_ranks requires a 32-bit value dtype (the rank "
                 "contract is a single u32 column)"
             )
-    method = _resolve_method(method)
+    method = _resolve_method(method, count=count, key_bits=common.native_key_bits(keys.dtype),
+                             tile=tile)
     core = _sort_core
     if common.is_64bit_key_dtype(keys.dtype):
         from . import sort64  # local import: sort64 builds on this module

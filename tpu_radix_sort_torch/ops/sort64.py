@@ -8,9 +8,10 @@ lexicographic order is the u64 order; with `bit_count` <= 32 the masked hi
 column is all-zero and only (lo,) goes in.
 
 The engines are those of the 32-bit sort (``ops/sort._engine_sort``),
-given the key-column tuple:
+given the key-column tuple; 'auto' takes bitonic below
+``AUTO_RADIX_MIN_N[64]`` keys and radix from there:
 
-- **bitonic** (what 'auto' picks): (hi, lo) lead the network's compare
+- **bitonic**: (hi, lo) lead the network's compare
   tuple, with the tie column after them: `n_keys` 3 for a stable sort, 2
   keys-only. The widest case, `bit_count`
   in 36..60 with 8-byte values that are not ranks, carries 7 columns
