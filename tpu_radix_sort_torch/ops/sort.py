@@ -28,6 +28,7 @@ from __future__ import annotations
 
 import torch
 
+from ..runtime.profiler import annotate
 from ..utils import interop
 from . import bitonic, checksort, common, radix
 
@@ -198,11 +199,15 @@ def _engine_sort(key_cols, payloads, *, stable, method, tile, key_bits=32,
             return (k,), ps
         # LSD composition over the 32-bit words: each sort_u32 is stable, so
         # sorting by lo then by hi orders by (hi, lo); hi holds the masked
-        # bits above 32 (two columns only when key_bits > 32)
+        # bits above 32 (two columns only when key_bits > 32). A span a
+        # word, so that a trace tells the engine's time from the 64-bit
+        # layer's own (``ops/sort64.py``)
         hi, lo = key_cols
-        lo, carried = radix.sort_u32(lo, (hi, *payloads), bit_count=32, tile=tile)
-        hi, carried = radix.sort_u32(carried[0], (lo, *carried[1:]),
-                                     bit_count=key_bits - 32, tile=tile)
+        with annotate("radix.lo_word"):
+            lo, carried = radix.sort_u32(lo, (hi, *payloads), bit_count=32, tile=tile)
+        with annotate("radix.hi_word"):
+            hi, carried = radix.sort_u32(carried[0], (lo, *carried[1:]),
+                                         bit_count=key_bits - 32, tile=tile)
         return (hi, carried[0]), carried[1:]
     if method == "xla":
         if len(key_cols) == 1:

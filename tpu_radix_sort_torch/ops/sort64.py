@@ -30,15 +30,19 @@ difference of the JAX package.
 """
 from __future__ import annotations
 
+from ..runtime.profiler import annotate
 from . import checksort, common
 from . import sort as sort_mod
 
 
+@annotate("sort64")
 def sort64(keys, values, *, count, bit_count, check_order, total_order,
            descending, values_are_ranks, method, tile):
     """Sort core of 64-bit keys (called from :func:`ops.sort.sort` with
     validated arguments). Always returns (keys, values_or_None), never
-    aliasing the inputs."""
+    aliasing the inputs. Each call is the span ``sort64``; the radix
+    engine's two word sorts within it are ``radix.lo_word`` and
+    ``radix.hi_word`` (``ops/sort._engine_sort``)."""
     if count <= 1:
         return keys.clone(), None if values is None else values.clone()
 

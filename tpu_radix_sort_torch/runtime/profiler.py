@@ -14,8 +14,10 @@ Counterpart of ``tpu_radix_sort/runtime/profiler.py``, which wraps
   written trace back: the launches of named kernels, and the share of a
   span in which the card was busy (kernels, copies, memsets).
 
-As in the JAX package, the ops carry no spans of their own: a caller
-annotates the blocks it wants to see.
+The ops carry spans on the 64-bit path alone (``sort64`` around
+``ops/sort64.sort64``, ``radix.lo_word`` and ``radix.hi_word`` around the
+radix engine's two word sorts), which the JAX package lacks; a caller
+annotates any other block it wants to see.
 """
 from __future__ import annotations
 
@@ -70,12 +72,18 @@ def trace(log_dir: str | None = None, device=None):
 @contextlib.contextmanager
 def annotate(name: str):
     """A named span: ``with annotate('reorder-pass-3'): ...``. An NVTX range
-    is pushed only where CUDA is present (a CPU build of torch has no NVTX)."""
+    is pushed only where CUDA is present (a CPU build of torch has no NVTX),
+    and the profiler's span only while a profiler records: outside a trace
+    ``record_function`` costs some microseconds and records nothing, and the
+    ops' own spans sit on the path of every 64-bit sort."""
     nvtx = torch.cuda.is_available()
     if nvtx:
         torch.cuda.nvtx.range_push(name)
     try:
-        with torch.profiler.record_function(name):
+        if torch.autograd.profiler._is_profiler_enabled:
+            with torch.profiler.record_function(name):
+                yield
+        else:
             yield
     finally:
         if nvtx:
