@@ -73,7 +73,7 @@ beside a device ``copy_`` of the same columns), and prints:
 - the card's name and power limit and its maximum SM clock (``nvidia-smi``)
   and the build's register, shared-memory and spill lines (it fails if the
   K1 tile kernel spills with 2 or 3 columns, either K1 kernel with 4 key
-  words or 8 columns, the K6 reorder kernel at all, any of P1's 20 kernels,
+  words or 8 columns, the K6 reorder kernel at any digit width, any of P1's 20 kernels,
   any kernel of ``csrc/explore_scan.cu`` or ``csrc/explore_blocksort.cu``,
   or P9's int32 or bfloat16 kernel);
 - one line per check, and one JSON line per probe case;
@@ -414,30 +414,35 @@ def run(dev) -> None:
     max_err["scan_kernel"] = max(max_err["scan_kernel"], *errs)
     check(not any(errs), "K4 == plain on 20 back-to-back exclusive scans of 2^26")
     del u, want, outs
-    # K6's chunk is 4,096 elements: tiles below it (one warp) and above it;
-    # all-equal keys fill a tile of 2^16 with one digit run
-    radix_tiles = (32, 128, radix.DEFAULT_TILE, 1 << 16)
+    # K6's chunk is 4,096 elements: tiles below it (one warp at 2 bits) and
+    # above it; all-equal keys fill a tile of 2^16 with one digit run. Every
+    # digit width: 2 (check_order), 4 and 6 (last digits), 8
+    radix_tiles = (32, 128, radix.DEFAULT_TILE, 1 << 15, 1 << 16)
     for n_arr in (1, 2, 3, 4, 5, 6):  # 5 and 6: the 64-bit radix paths
         x = torch.stack([rand_u32(SMALL_N).view(torch.int32) for _ in range(n_arr)])
         for keys_kind in ("random", "all-equal"):
             if keys_kind == "all-equal":
                 x[0] = common.i32(0xDEADBEEF)
-            for bit in (0, 2, 16, 30):
-                for tile in radix_tiles:
-                    hist = radix.digit_histogram(x[0], bit=bit, tile=tile)
-                    err_h = u32_err(hist, radix.digit_histogram_plain(x[0], bit=bit, tile=tile))
-                    offs = radix.bucket_offsets(hist)
-                    got = radix.reorder_pass(x, offs, bit=bit, tile=tile)
-                    want = radix.reorder_pass_plain(x, offs, bit=bit, tile=tile,
-                                                    out=torch.empty_like(x))
-                    err_r = u32_err(got, want)
-                    max_err["digit_histogram_kernel"] = max(max_err["digit_histogram_kernel"], err_h)
-                    max_err["reorder_kernel"] = max(max_err["reorder_kernel"], err_r)
-                    if err_h or err_r:
-                        raise CheckFailed(f"K5/K6 differ from plain: {n_arr} columns, "
-                                          f"{keys_kind} keys, bit {bit}, tile {tile}")
+            for w in radix.DIGIT_BITS:
+                for bit in (0, 2, 16, 32 - w):
+                    for tile in radix_tiles:
+                        hist = radix.digit_histogram(x[0], bit=bit, tile=tile, digit_bits=w)
+                        err_h = u32_err(hist, radix.digit_histogram_plain(
+                            x[0], bit=bit, tile=tile, digit_bits=w))
+                        offs = radix.bucket_offsets(hist)
+                        got = radix.reorder_pass(x, offs, bit=bit, tile=tile, digit_bits=w)
+                        want = radix.reorder_pass_plain(x, offs, bit=bit, tile=tile,
+                                                        out=torch.empty_like(x), digit_bits=w)
+                        err_r = u32_err(got, want)
+                        max_err["digit_histogram_kernel"] = max(
+                            max_err["digit_histogram_kernel"], err_h)
+                        max_err["reorder_kernel"] = max(max_err["reorder_kernel"], err_r)
+                        if err_h or err_r:
+                            raise CheckFailed(f"K5/K6 differ from plain: {n_arr} columns, "
+                                              f"{keys_kind} keys, {w}-bit digit at bit {bit}, "
+                                              f"tile {tile}")
         check(True, f"K5 and K6 == plain, {n_arr} columns, n 2^16+3, random and all-equal "
-              f"keys, bits 0/2/16/30, tiles {radix_tiles}")
+              f"keys, digits of {radix.DIGIT_BITS} bits at bits 0/2/16/top, tiles {radix_tiles}")
     del x, got, want
 
     # ---- the main path -----------------------------------------------------
@@ -472,14 +477,17 @@ def run(dev) -> None:
     ko = drive("keys-only 2^26", lambda: trt.sort(keys, method="bitonic"))
     check(same(ko, rk), "keys-only sort, method='bitonic', 2^26 u32 == torch.sort")
     del ko
-    # 'auto' at the headline size: the radix engine, 16 passes of K5, K4, K6
+    # 'auto' at the headline size: the radix engine, 4 passes of 8 bits
+    wide0 = radix.pass_counts()
     aok, aov = drive("auto k+v 2^26", lambda: trt.sort(keys, iota, values_are_ranks=True))
     d = per_case["auto k+v 2^26"]
-    check(same(aok, rk) and same(aov, rv) and d["digit_histogram_kernel"] == 16
-          and d["scan_kernel"] == 16 and d["reorder_kernel"] == 16
-          and d["bitonic_tile_kernel"] == 0 and d["bitonic_global_stage_kernel"] == 0,
+    wide1 = radix.pass_counts()
+    check(same(aok, rk) and same(aov, rv) and d["digit_histogram_kernel"] == 4
+          and d["scan_kernel"] == 4 and d["reorder_kernel"] == 4
+          and d["bitonic_tile_kernel"] == 0 and d["bitonic_global_stage_kernel"] == 0
+          and {w: wide1[w] - wide0[w] for w in wide1} == {2: 0, 4: 0, 6: 0, 8: 4},
           "sort(keys, iota, values_are_ranks=True), 2^26 u32: 'auto' takes the radix engine "
-          "(16 K5, 16 K4, 16 K6, no K1) == torch.sort(stable=True)")
+          "(4 K5, 4 K4, 4 K6 at 8 bits a digit, no K1) == torch.sort(stable=True)")
     del aok, aov
 
     def auto_took(fmt, engine):
@@ -580,8 +588,8 @@ def run(dev) -> None:
               f"== torch.sort(stable=True) of the biased int64 view")
         o = drive(f"u64 keys-only {method} 2^26", lambda: trt.sort(k64, method=method))
         check(same(o, r64k), f"sort(u64 keys, method={method!r}), 2^26 == torch.sort")
-    check(per_case["u64 keys-only radix 2^26"]["digit_histogram_kernel"] == 32,
-          "the 64-bit radix sort runs 32 passes")
+    check(per_case["u64 keys-only radix 2^26"]["digit_histogram_kernel"] == 8,
+          "the 64-bit radix sort runs 8 passes")
     auto_took("u64 k+rank {} 2^26", "radix")
     auto_took("u64 keys-only {} 2^26", "radix")
     f64 = torch.randn(HEADLINE_N, dtype=torch.float64, device=dev, generator=gen) * 1e6
@@ -624,8 +632,8 @@ def run(dev) -> None:
     d = per_case["u64 bit_count=32 bitonic 2^26"]
     check(d["bitonic_tile_kernel"] >= 1 and d["digit_histogram_kernel"] == 0,
           "u64 bit_count=32, method='bitonic': K1 sorts the one key column")
-    check(per_case["u64 bit_count=32 radix 2^26"]["digit_histogram_kernel"] == 16,
-          "u64 bit_count=32, method='radix': 16 passes over the one key column")
+    check(per_case["u64 bit_count=32 radix 2^26"]["digit_histogram_kernel"] == 4,
+          "u64 bit_count=32, method='radix': 4 passes over the one key column")
     auto_took("u64 bit_count=32 {} 2^26", "radix")
     case = "u64 check_order sorted bit_count=32 2^26"
     o = drive(case, lambda: trt.sort(lo_sorted, bit_count=32, check_order=True))
@@ -656,8 +664,8 @@ def run(dev) -> None:
                   lambda: trt.sort(b16, iota, values_are_ranks=True, method=method))
         check(same(o[0], rb_k) and same(o[1], rb_v),
               f"sort(bf16 keys, iota, method={method!r}), 2^26 == torch.sort(stable=True)")
-    check(per_case["bf16 keys-only radix 2^26"]["digit_histogram_kernel"] == 8,
-          "the 16-bit radix sort runs 8 passes")
+    check(per_case["bf16 keys-only radix 2^26"]["digit_histogram_kernel"] == 2,
+          "the 16-bit radix sort runs 2 passes")
     auto_took("bf16 keys-only {} 2^26", "radix")
     auto_took("bf16 k+iota {} 2^26", "radix")
     u16 = (small.cpu().numpy() >> np.uint32(16)).astype(np.uint16)
@@ -1019,28 +1027,33 @@ def run(dev) -> None:
                       "plain_ms_sum": sum(p_ms), "bound_ms_sum": bound(a["bytes"], a["ops"])[0]}))
 
     # Replay the headline radix sort (key, iota) pass by pass, each kernel
-    # call on the same input as its plain version.
-    rtile = radix.DEFAULT_TILE
+    # call on the same input as its plain version: the engine's widths and
+    # tiles
+    wbits = radix.WIDE_BITS
+    rtile = radix.default_tile(HEADLINE_N, wbits)
     xr = torch.stack([keys.view(torch.int32), iota.view(torch.int32)])
     yr = torch.empty_like(xr)
-    for i in range(32 // radix.RADIX_BITS):
-        bit = i * radix.RADIX_BITS
-        hist = radix.digit_histogram(xr[0], bit=bit, tile=rtile)
+    bit = 0
+    for w in radix.digit_widths(32):
+        t = radix.default_tile(HEADLINE_N, w)
+        hist = radix.digit_histogram(xr[0], bit=bit, tile=t, digit_bits=w)
         max_err["digit_histogram_kernel"] = max(
             max_err["digit_histogram_kernel"],
-            u32_err(hist, radix.digit_histogram_plain(xr[0], bit=bit, tile=rtile)))
+            u32_err(hist, radix.digit_histogram_plain(xr[0], bit=bit, tile=t, digit_bits=w)))
         offs = radix.bucket_offsets(hist)
         max_err["scan_kernel"] = max(max_err["scan_kernel"], u32_err(
             offs.reshape(-1), scan.scan_plain(hist.reshape(-1))))
-        radix.reorder_pass(xr, offs, bit=bit, tile=rtile, out=yr)
-        want = radix.reorder_pass_plain(xr, offs, bit=bit, tile=rtile, out=torch.empty_like(xr))
+        radix.reorder_pass(xr, offs, bit=bit, tile=t, out=yr, digit_bits=w)
+        want = radix.reorder_pass_plain(xr, offs, bit=bit, tile=t, out=torch.empty_like(xr),
+                                        digit_bits=w)
         max_err["reorder_kernel"] = max(max_err["reorder_kernel"], u32_err(yr, want))
         xr, yr = yr, xr
+        bit += w
         del want
     check(max_err["digit_histogram_kernel"] == 0 and max_err["reorder_kernel"] == 0
           and max_err["scan_kernel"] == 0 and same(xr[0], rk) and same(xr[1], rv),
           f"K5, K4 and K6 == plain per pass on the headline radix sort (2^26, 2 columns, "
-          f"tile {rtile})")
+          f"{radix.digit_widths(32)} bits, tile {rtile})")
 
     # Per-call times at the headline shapes, back to back after a warm-up
     # (pass 0 of the headline radix sort; K4 as the public scan of 2^26).
@@ -1062,7 +1075,7 @@ def run(dev) -> None:
     n = HEADLINE_N
     u0 = keys.view(torch.int32)
     xr = torch.stack([u0, iota.view(torch.int32)])
-    hist0 = radix.digit_histogram(u0, bit=0, tile=rtile)
+    hist0 = radix.digit_histogram(u0, bit=0, tile=rtile, digit_bits=wbits)
     offs0 = radix.bucket_offsets(hist0)
     nb = hist0.shape[1]
     rows["scan_kernel"] = dict(
@@ -1070,15 +1083,18 @@ def run(dev) -> None:
         plain_ms=ms(lambda x: scan.scan_plain(x, inclusive=True), u0, iters=5),
         bytes=8 * n, ops=n,
         library_ms=ms(lambda x: torch.cumsum(x, 0, dtype=torch.int32), u0))
+    nbk = 1 << wbits  # the wide table's digits
     rows["digit_histogram_kernel"] = dict(
-        ms=ms(lambda x: radix.digit_histogram(x, bit=0, tile=rtile), u0),
-        plain_ms=ms(lambda x: radix.digit_histogram_plain(x, bit=0, tile=rtile), u0, iters=5),
-        bytes=4 * n + 4 * radix.R * nb, ops=2 * n, library_ms=None)
+        ms=ms(lambda x: radix.digit_histogram(x, bit=0, tile=rtile, digit_bits=wbits), u0),
+        plain_ms=ms(lambda x: radix.digit_histogram_plain(x, bit=0, tile=rtile,
+                                                          digit_bits=wbits), u0, iters=5),
+        bytes=4 * n + 4 * nbk * nb, ops=2 * n, library_ms=None)
     rows["reorder_kernel"] = dict(
-        ms=ms(lambda x: radix.reorder_pass(x, offs0, bit=0, tile=rtile, out=yr), xr),
-        plain_ms=ms(lambda x: radix.reorder_pass_plain(x, offs0, bit=0, tile=rtile, out=yr),
-                    xr, iters=3),
-        bytes=2 * 2 * 4 * n + 4 * radix.R * nb, ops=2 * n, library_ms=None)
+        ms=ms(lambda x: radix.reorder_pass(x, offs0, bit=0, tile=rtile, out=yr,
+                                           digit_bits=wbits), xr),
+        plain_ms=ms(lambda x: radix.reorder_pass_plain(x, offs0, bit=0, tile=rtile, out=yr,
+                                                       digit_bits=wbits), xr, iters=3),
+        bytes=2 * 2 * 4 * n + 4 * nbk * nb, ops=2 * n, library_ms=None)
     # K3 at the headline size, on the sorted u64 keys (a gate's full read),
     # each call with a cold L2
     hi64, lo64 = common.to_sortable_u64_cols(r64k)
@@ -1102,38 +1118,42 @@ def run(dev) -> None:
     table_launches = _build.SCAN.launches - before
     table_ms = ms(radix.bucket_offsets, hist0)
     table_plain_ms = ms(lambda h: scan.scan_plain(h.reshape(-1)), hist0)
-    print(json.dumps({"calls_of": "scan_kernel", "radix_table_entries": radix.R * nb,
+    print(json.dumps({"calls_of": "scan_kernel", "radix_table_entries": nbk * nb,
                       "launches_per_table_scan": table_launches, "ms": table_ms,
                       "plain_ms": table_plain_ms,
-                      "bound_ms": bound(8 * radix.R * nb, radix.R * nb)[0]}))
+                      "bound_ms": bound(8 * nbk * nb, nbk * nb)[0]}))
     # Beside each K6 time, a device copy_ of the same (n_arr, n) columns: the
     # rate this card reaches for a plain read and write of those bytes.
     def copy_ms(x, y):
         return ms(lambda a: y.copy_(a), x)
 
-    print(json.dumps({"calls_of": "reorder_kernel", "columns": 1,
+    print(json.dumps({"calls_of": "reorder_kernel", "columns": 1, "digit_bits": wbits,
                       "ms": ms(lambda x: radix.reorder_pass(x, offs0, bit=0, tile=rtile,
-                                                            out=yr[:1]), xr[:1]),
+                                                            out=yr[:1], digit_bits=wbits),
+                               xr[:1]),
                       "copy_ms": copy_ms(xr[:1], yr[:1]),
-                      "bound_ms": bound(2 * 4 * n + 4 * radix.R * nb, 2 * n)[0]}))
-    print(json.dumps({"calls_of": "reorder_kernel", "columns": 2,
+                      "bound_ms": bound(2 * 4 * n + 4 * nbk * nb, 2 * n)[0]}))
+    print(json.dumps({"calls_of": "reorder_kernel", "columns": 2, "digit_bits": wbits,
                       "ms": rows["reorder_kernel"]["ms"], "copy_ms": copy_ms(xr, yr),
                       "bound_ms": bound(rows["reorder_kernel"]["bytes"], 2 * n)[0]}))
     # pass 0 of the 64-bit key + rank radix sort: lo, carrying hi and the rank
     x3 = torch.stack([*common.to_sortable_u64_cols(k64)[::-1], iota.view(torch.int32)])
     y3 = torch.empty_like(x3)
-    offs3 = radix.bucket_offsets(radix.digit_histogram(x3[0], bit=0, tile=rtile))
-    want = radix.reorder_pass_plain(x3, offs3, bit=0, tile=rtile, out=torch.empty_like(x3))
-    err = u32_err(radix.reorder_pass(x3, offs3, bit=0, tile=rtile, out=y3), want)
+    offs3 = radix.bucket_offsets(radix.digit_histogram(x3[0], bit=0, tile=rtile,
+                                                       digit_bits=wbits))
+    want = radix.reorder_pass_plain(x3, offs3, bit=0, tile=rtile, out=torch.empty_like(x3),
+                                    digit_bits=wbits)
+    err = u32_err(radix.reorder_pass(x3, offs3, bit=0, tile=rtile, out=y3, digit_bits=wbits),
+                  want)
     max_err["reorder_kernel"] = max(max_err["reorder_kernel"], err)
     check(err == 0, "K6 == plain on pass 0 of the u64 key+rank radix sort (2^26, 3 columns)")
-    print(json.dumps({"calls_of": "reorder_kernel", "columns": 3,
+    print(json.dumps({"calls_of": "reorder_kernel", "columns": 3, "digit_bits": wbits,
                       "ms": ms(lambda x: radix.reorder_pass(x, offs3, bit=0, tile=rtile,
-                                                            out=y3), x3),
+                                                            out=y3, digit_bits=wbits), x3),
                       "copy_ms": copy_ms(x3, y3),
                       "plain_ms": ms(lambda x: radix.reorder_pass_plain(
-                          x, offs3, bit=0, tile=rtile, out=y3), x3, iters=3),
-                      "bound_ms": bound(2 * 3 * 4 * n + 4 * radix.R * nb, 2 * n)[0]}))
+                          x, offs3, bit=0, tile=rtile, out=y3, digit_bits=wbits), x3, iters=3),
+                      "bound_ms": bound(2 * 3 * 4 * n + 4 * nbk * nb, 2 * n)[0]}))
     del xr, yr, y3, want
     # 4 to 6 columns (the 64-bit radix paths with payloads), on pass 0 of
     # the same keys: extra random payload columns
@@ -1141,18 +1161,21 @@ def run(dev) -> None:
         xc = torch.cat([x3, torch.stack([rand_u32(n).view(torch.int32)
                                          for _ in range(cols - 3)])])
         yc = torch.empty_like(xc)
-        want = radix.reorder_pass_plain(xc, offs3, bit=0, tile=rtile, out=torch.empty_like(xc))
-        err = u32_err(radix.reorder_pass(xc, offs3, bit=0, tile=rtile, out=yc), want)
+        want = radix.reorder_pass_plain(xc, offs3, bit=0, tile=rtile, out=torch.empty_like(xc),
+                                        digit_bits=wbits)
+        err = u32_err(radix.reorder_pass(xc, offs3, bit=0, tile=rtile, out=yc,
+                                         digit_bits=wbits), want)
         max_err["reorder_kernel"] = max(max_err["reorder_kernel"], err)
         check(err == 0, f"K6 == plain on pass 0 at 2^26 with {cols} columns")
         del want
-        print(json.dumps({"calls_of": "reorder_kernel", "columns": cols,
+        print(json.dumps({"calls_of": "reorder_kernel", "columns": cols, "digit_bits": wbits,
                           "ms": ms(lambda x: radix.reorder_pass(x, offs3, bit=0, tile=rtile,
-                                                                out=yc), xc),
+                                                                out=yc, digit_bits=wbits), xc),
                           "copy_ms": copy_ms(xc, yc),
                           "plain_ms": ms(lambda x: radix.reorder_pass_plain(
-                              x, offs3, bit=0, tile=rtile, out=yc), xc, iters=3),
-                          "bound_ms": bound(2 * cols * 4 * n + 4 * radix.R * nb, 2 * n)[0]}))
+                              x, offs3, bit=0, tile=rtile, out=yc, digit_bits=wbits), xc,
+                              iters=3),
+                          "bound_ms": bound(2 * cols * 4 * n + 4 * nbk * nb, 2 * n)[0]}))
         del xc, yc
     del x3
 
@@ -1354,8 +1377,9 @@ def run(dev) -> None:
           f"bitonic_tile_kernel with 2 or 3 columns, and both K1 kernels of every "
           f"instance with 4 key words or 8 columns, spill no registers (ptxas spill "
           f"stores in bytes: {spilled})")
-    check(len(reorder_spills) == 1 and not any(reorder_spills.values()),
-          f"reorder_kernel spills no registers (ptxas spill stores in bytes: {reorder_spills})")
+    check(len(reorder_spills) == len(radix.DIGIT_BITS) and not any(reorder_spills.values()),
+          f"reorder_kernel spills no registers at any digit width (ptxas spill stores in "
+          f"bytes: {reorder_spills})")
     check(len(ce_spills) == 20 and not any(ce_spills.values()),
           f"P1's 20 kernels (10 functions, smem and regs) spill no registers (ptxas spill "
           f"stores in bytes by (formulation, kind, columns, key words, column type): "
@@ -1402,9 +1426,9 @@ def run(dev) -> None:
         "radix_tile": rtile,
         "radix_launches_per_sort": per_case["radix k+v 2^26"],
         "radix_launches_per_keys_only_sort": per_case["radix keys-only 2^26"],
-        "radix_engine_bound_ms": 16 * (bound(rows["digit_histogram_kernel"]["bytes"], 0)[0]
-                                       + bound(rows["reorder_kernel"]["bytes"], 0)[0]
-                                       + bound(8 * radix.R * nb, 0)[0]),
+        "radix_engine_bound_ms": len(radix.digit_widths(32)) * (
+            bound(rows["digit_histogram_kernel"]["bytes"], 0)[0]
+            + bound(rows["reorder_kernel"]["bytes"], 0)[0] + bound(8 * nbk * nb, 0)[0]),
         "radix_early_exit_passes": passes,
         "prefix_sum_ms": prefix_ms, "prefix_sum_bound_ms": bound(8 * n, n)[0],
         "cumsum_ms": rows["scan_kernel"]["library_ms"],

@@ -30,7 +30,16 @@ on two checkouts in turns on one machine (A, B, B, A) compares them on one
 card. It uses only entry points that every slice of the port has had since
 the scan probes.
 
-``--ce-probe-only`` builds only ``explore_ce.cu`` and times every case of
+``--radix-only`` builds only ``radix.cu`` and ``scan.cu`` and times K5 and
+K6 on pass 0 of uniform keys at 2^26 and at 30,000,000 (the splat frame's
+length: a partial last tile) for every digit width the checkout's engine
+takes (2 bits, and 4, 6 and 8 where it has them; 8 at tiles 2^12 to 2^16),
+K6 with 1 to 6 columns, each beside a ``copy_`` of the same columns and its
+bound, K6 once on the entropy cell's keys (the AND of 5 uniform words: one
+hot digit), and each width's pass checked once against its plain version;
+then the 2^26 key+index sort through ``'auto'`` and the 30M u64 key + u32
+payload sort by 44 bits (the flat and splat cells' calls), each beside its
+passes. ``--ce-probe-only`` builds only ``explore_ce.cu`` and times every case of
 the compare-exchange probe P1 (``explore_ce.cases(ce_all=True)``) at 2^24 in
 both formulations, at 16 and at 0 stages, each beside a ``copy_`` of the
 same columns, every call queued behind a sleep. ``--keys16-probe-only``
@@ -77,6 +86,8 @@ def main() -> int:
                       help="build and time only the stage probe P9")
     only.add_argument("--blocksort-probe-only", action="store_true",
                       help="build and time only the one-tile probes P2 and P3")
+    only.add_argument("--radix-only", action="store_true",
+                      help="build and time only K5 and K6 at each digit width, and two sorts")
     only.add_argument("--sass", action="store_true",
                       help="print the SASS opcode counts of the probes' kernels")
     args = ap.parse_args()
@@ -96,6 +107,7 @@ def main() -> int:
                else ["explore_ce"] if args.ce_probe_only
                else ["explore_keys16"] if args.keys16_probe_only
                else ["explore_blocksort"] if args.blocksort_probe_only
+               else ["radix", "scan"] if args.radix_only
                else ["explore_ce", "explore_blocksort", "explore_keys16"] if args.sass else None)
     _build.build(sources)
     smi = subprocess.run(
@@ -103,10 +115,11 @@ def main() -> int:
         capture_output=True, text=True, check=True).stdout.strip()
     label = args.label or args.root
     if (args.scan_probes_only or args.ce_probe_only or args.keys16_probe_only
-            or args.blocksort_probe_only):
+            or args.blocksort_probe_only or args.radix_only):
         key, fn = (("scan_probes", scan_probes) if args.scan_probes_only
                    else ("ce_probe", ce_probe) if args.ce_probe_only
                    else ("keys16_probe", keys16_probe) if args.keys16_probe_only
+                   else ("radix", radix_times) if args.radix_only
                    else ("blocksort_probe", blocksort_probe))
         print(json.dumps({"kernel_times": {"label": label, "card": smi,
                                            key: fn(torch, device_time)}}), flush=True)
@@ -207,6 +220,101 @@ def main() -> int:
     out["scan_probes"] = scan_probes(torch, device_time)
     print(json.dumps({"kernel_times": out}), flush=True)
     return 0
+
+
+def radix_times(torch, device_time) -> dict:
+    """K5 and K6 of the checkout on pass 0 at each digit width and tile,
+    1 to 6 columns, at 2^26 and 30M keys, and the flat and splat calls."""
+    import tpu_radix_sort_torch as trt
+    from tpu_radix_sort_torch import _build
+    from tpu_radix_sort_torch.ops import radix
+
+    def ms(fn, *a, iters=20):
+        return device_time(fn, *a, warmup=2, iters=iters) * 1e3
+
+    def gbound(n_bytes):
+        return n_bytes / HBM_BYTES_PER_S * 1e3
+
+    widths = getattr(radix, "DIGIT_BITS", (2,))
+    wide = len(widths) > 1
+
+    def kw(w):  # the checkout's wrappers take digit_bits where it has wide digits
+        return {"digit_bits": w} if wide else {}
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    out = {"digit_bits": list(widths)}
+    for n in (N, 30_000_000):
+        x6 = torch.randint(-2**31, 2**31, (6, n), dtype=torch.int32, device="cuda",
+                           generator=gen)
+        ent = x6[1] & x6[2] & x6[3] & x6[4] & x6[5]  # CUB Entropy 0.201
+        rows = {}
+        for w in widths:
+            tiles = ([radix.DEFAULT_TILE] if w == 2 else
+                     sorted({radix.default_tile(n, w), *((1 << p) for p in range(12, 17))})
+                     if w == 8 else [radix.default_tile(n, w)])
+            for tile in tiles:
+                hist = radix.digit_histogram(x6[0], bit=0, tile=tile, **kw(w))
+                offs = radix.bucket_offsets(hist)
+                row = {"k5_ms": ms(lambda a: radix.digit_histogram(a, bit=0, tile=tile, **kw(w)),
+                                   x6[0]),
+                       "k5_bound_ms": gbound(4 * n + 4 * hist.numel()),
+                       "k4_table_ms": ms(radix.bucket_offsets, hist),
+                       "table_entries": hist.numel()}
+                x2 = x6[:2]
+                got = radix.reorder_pass(x2, offs, bit=0, tile=tile, **kw(w))
+                want = radix.reorder_pass_plain(x2, offs, bit=0, tile=tile,
+                                                out=torch.empty_like(x2), **kw(w))
+                row["k6_equals_plain"] = bool(torch.equal(got, want))
+                del got, want
+                for cols in range(1, 7):
+                    x, y = x6[:cols], torch.empty_like(x6[:cols])
+                    row[f"k6_{cols}"] = {
+                        "ms": ms(lambda a: radix.reorder_pass(a, offs, bit=0, tile=tile, out=y,
+                                                              **kw(w)), x),
+                        "copy_ms": ms(lambda a: y.copy_(a), x),
+                        "bound_ms": gbound(2 * cols * 4 * n + 4 * hist.numel())}
+                    del x, y
+                if not wide or tile == radix.default_tile(n, w):
+                    xe = torch.stack([ent, x6[1]])
+                    offe = radix.bucket_offsets(radix.digit_histogram(ent, bit=0, tile=tile,
+                                                                      **kw(w)))
+                    ye = torch.empty_like(xe)
+                    row["k6_2_entropy_ms"] = ms(
+                        lambda a: radix.reorder_pass(a, offe, bit=0, tile=tile, out=ye, **kw(w)),
+                        xe)
+                    del xe, ye, offe
+                rows[f"w{w}_tile{tile}"] = row
+        out[f"n{n}"] = rows
+        del x6, ent
+    # the cells' calls: flat (2^26 u32 key + index, 'auto') and splat (30M
+    # u64 keys + u32 payload by their low 44 bits)
+    k = torch.randint(-2**31, 2**31, (N,), dtype=torch.int32, device="cuda",
+                      generator=gen).view(torch.uint32)
+    iota = torch.arange(N, dtype=torch.int32, device="cuda").view(torch.uint32)
+    sk, idx = torch.sort(k.view(torch.int32) ^ (-2**31), stable=True)
+    ok, ov = trt.sort(k, iota, values_are_ranks=True)
+    flat_ok = bool(torch.equal(ok.view(torch.int32), sk ^ (-2**31))
+                   and torch.equal(ov.view(torch.int32), idx.to(torch.int32)))
+    del ok, ov, sk, idx
+    h0 = _build.DIGIT_HISTOGRAM.launches
+    trt.sort(k, iota, values_are_ranks=True)
+    passes = _build.DIGIT_HISTOGRAM.launches - h0
+    out["flat_sort"] = {"ms": ms(lambda a, b: trt.sort(a, b, values_are_ranks=True), k, iota,
+                                 iters=10),
+                        "passes": passes, "equals_torch_sort": flat_ok}
+    del k, iota
+    n = 30_000_000
+    k64 = torch.randint(-2**63, 2**63 - 1, (n,), dtype=torch.int64, device="cuda",
+                        generator=gen).view(torch.uint64)
+    v = torch.randint(-2**31, 2**31, (n,), dtype=torch.int32, device="cuda",
+                      generator=gen).view(torch.uint32)
+    h0 = _build.DIGIT_HISTOGRAM.launches
+    trt.sort(k64, v, bit_count=44)
+    passes = _build.DIGIT_HISTOGRAM.launches - h0
+    out["splat_sort"] = {"ms": ms(lambda a, b: trt.sort(a, b, bit_count=44), k64, v, iters=10),
+                         "passes": passes}
+    return out
 
 
 def scan_probes(torch, device_time) -> dict:

@@ -166,6 +166,63 @@ def test_radix_kernels_match_plain(cuda, n_arr, tile, keys):
             assert (_build.DIGIT_HISTOGRAM.launches, _build.REORDER.launches) == (h0 + 1, r0 + 1)
 
 
+@pytest.mark.parametrize("digit_bits", [4, 6, 8])
+@pytest.mark.parametrize("n_arr", [1, 2, 3, 4, 5, 6])
+@pytest.mark.parametrize("tile", [128, 4096, 1 << 15, 1 << 16])
+def test_wide_radix_kernels_match_plain(cuda, digit_bits, n_arr, tile):
+    """K5 and K6 at 4, 6 and 8 bits a digit (the width rule's last digits
+    and its 8-bit passes) against their plain versions, one launch each a
+    pass: tiles below K6's 4,096-element chunk and above it (tiles of 8
+    and 16 chunks, K6 clusters of 8 and 16 blocks), n = 1,000 within one
+    chunk and 2^18 + 3 with a last tile of 3 keys (and empty blocks); random keys with one digit run across tiles, all-equal
+    keys (one run fills every tile) and keys whose digit is one hot value
+    in 3 of 4 elements."""
+    rng = np.random.default_rng(1000 * digit_bits + 10 * n_arr + tile.bit_length())
+    for n in (1000, (1 << 18) + 3):
+        x = torch.from_numpy(rng.integers(-2**31, 2**31, (n_arr, n), dtype=np.int64)
+                             .astype(np.int32)).to(cuda)
+        for keys in ("random", "all-equal", "hot"):
+            if keys == "random":
+                x[0, ::7] = 12345
+            elif keys == "all-equal":
+                x[0] = -0x21524111  # 0xDEADBEEF
+            else:
+                x[0] = torch.from_numpy(rng.integers(-2**31, 2**31, n, dtype=np.int64)
+                                        .astype(np.int32)).to(cuda)
+                x[0, rng.random(n) < 0.75] = 0
+            for bit in (0, 13, 32 - digit_bits):
+                h0, r0 = _build.DIGIT_HISTOGRAM.launches, _build.REORDER.launches
+                hist = radix.digit_histogram(x[0], bit=bit, tile=tile, digit_bits=digit_bits)
+                assert torch.equal(hist, radix.digit_histogram_plain(
+                    x[0], bit=bit, tile=tile, digit_bits=digit_bits)), (n, keys, bit)
+                offs = radix.bucket_offsets(hist)
+                got = radix.reorder_pass(x, offs, bit=bit, tile=tile, digit_bits=digit_bits)
+                want = radix.reorder_pass_plain(x, offs, bit=bit, tile=tile,
+                                                out=torch.empty_like(x), digit_bits=digit_bits)
+                torch.cuda.synchronize()
+                assert torch.equal(got, want), (n, keys, bit)
+                assert (_build.DIGIT_HISTOGRAM.launches, _build.REORDER.launches) == (h0 + 1,
+                                                                                      r0 + 1)
+
+
+def test_auto_sorts_2p26_key_index_in_four_wide_passes(cuda):
+    """The flat cell's call: 2^26 u32 keys + index through 'auto' (the
+    radix engine), 4 passes of 8 bits, against torch.sort(stable=True)."""
+    n = 1 << 26
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(20)
+    k = torch.randint(-2**31, 2**31, (n,), dtype=torch.int32, device=cuda, generator=gen)
+    v = torch.arange(n, dtype=torch.int32, device=cuda).view(torch.uint32)
+    p0, h0 = radix.pass_counts(), _build.DIGIT_HISTOGRAM.launches
+    ok, ov = trt.sort(k.view(torch.uint32), v, values_are_ranks=True)
+    sk, idx = torch.sort(k ^ (-2**31), stable=True)
+    assert torch.equal(ok.view(torch.int32), sk ^ (-2**31))
+    assert torch.equal(ov.view(torch.int32), idx.to(torch.int32))
+    p1 = radix.pass_counts()
+    assert {w: p1[w] - p0[w] for w in p1} == {2: 0, 4: 0, 6: 0, 8: 4}
+    assert _build.DIGIT_HISTOGRAM.launches - h0 == 4
+
+
 def test_radix_sort_on_card_matches_torch_sort(cuda):
     rng = np.random.default_rng(11)
     n = (1 << 20) + 3
@@ -193,8 +250,9 @@ def _launches():
                                       (1 << 10, "bitonic"),
                                       (sort_mod.AUTO_RADIX_MIN_N[32] - 1, "bitonic")])
 def test_auto_launches_the_engine_of_its_size(cuda, n, engine):
-    """'auto' on u32 key + rank: from the threshold on K5, K4 and K6, 16
-    each, and no K1; below it K1 alone. Both give torch.sort's bytes."""
+    """'auto' on u32 key + rank: from the threshold on K5, K4 and K6, 4
+    each (8-bit digits), and no K1; below it K1 alone. Both give
+    torch.sort's bytes."""
     k = torch.randint(-2**31, 2**31 - 1, (n,), dtype=torch.int32, device=cuda)
     v = torch.arange(n, dtype=torch.int32, device=cuda).view(torch.uint32)
     before = _launches()
@@ -205,7 +263,7 @@ def test_auto_launches_the_engine_of_its_size(cuda, n, engine):
     assert torch.equal(ov.view(torch.int32), idx.to(torch.int32))
     if engine == "radix":
         assert d == {"bitonic_tile_kernel": 0, "bitonic_global_stage_kernel": 0,
-                     "digit_histogram_kernel": 16, "scan_kernel": 16, "reorder_kernel": 16}
+                     "digit_histogram_kernel": 4, "scan_kernel": 4, "reorder_kernel": 4}
     else:
         assert d["bitonic_tile_kernel"] >= 1 and d["digit_histogram_kernel"] == 0
         assert d["scan_kernel"] == 0 and d["reorder_kernel"] == 0

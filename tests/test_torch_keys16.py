@@ -1,6 +1,6 @@
 """Port parity of 16-bit keys (uint16 / int16 / float16 / bfloat16): the
 u16 bit pattern widened into a u32 lane, `bit_count` up to 16, the radix
-engine at 8 passes, bfloat16 across the numpy boundary as its bits.
+engine at 2 passes of 8 bits, bfloat16 across the numpy boundary as its bits.
 Byte-exact (tolerance 0) against the JAX package and the numpy golden.
 
 One JAX sort (bfloat16 key+value through the bitonic engine, total order,
@@ -139,8 +139,8 @@ def test_option_surface_and_checks():
 
 def test_native_width_rule(monkeypatch):
     """A 16-bit key at bit_count 16 is the whole key: the network carries no
-    full-key column (as in the JAX package), and the radix engine runs 8
-    passes over the default 16 bits."""
+    full-key column (as in the JAX package), and the radix engine runs 2
+    passes of 8 bits over the default 16 bits."""
     seen, passes = [], []
     real_sort, real_pass = bitonic.sort_padded_cols, radix.reorder_pass
     monkeypatch.setattr(bitonic, "sort_padded_cols",
@@ -153,7 +153,7 @@ def test_native_width_rule(monkeypatch):
     trt.sort(_port(k), bit_count=12)
     assert seen == [1, 3]  # keys-only; masked: (key, tie, full key)
     trt.sort(_port(k), method="radix")
-    assert passes == [1] * 8
+    assert passes == [1] * 2
 
 
 def test_interop_and_golden_carry_bfloat16_as_bits():

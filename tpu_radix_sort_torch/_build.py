@@ -135,10 +135,11 @@ DISORDER_COLS = Kernel(
 SCAN = Kernel("scan_kernel", "scan", "trs_scan", [_P, _I64, _P, _I32, _P, _P])
 DIGIT_HISTOGRAM = Kernel(
     "digit_histogram_kernel", "radix", "trs_digit_histogram",
-    [_P, _I64, _I32, _I64, _P, _P],
+    [_P, _I64, _I32, _I32, _I64, _P, _P],
 )
 REORDER = Kernel(
-    "reorder_kernel", "radix", "trs_reorder", [_P, _P, _I64, _I32, _I32, _I64, _P, _P],
+    "reorder_kernel", "radix", "trs_reorder",
+    [_P, _P, _I64, _I32, _I32, _I32, _I64, _P, _P],
 )
 # The probes of ``tpu_radix_sort_torch/benchmarks`` (P1-P9): no sort
 # launches them.

@@ -8,7 +8,7 @@ MSD-bucket + batched-block-sort hybrid would be built from. At 2^24:
 2. at [8,192 x 2,048]: two operands (key + payload), unstable and stable,
    and three, stable: a sort of the key and a ``gather`` of each payload
    by its indices;
-3. the radix engine at ``bit_count=4``: 2 passes of K5 + K4 + K6;
+3. the radix engine at ``bit_count=4``: 1 pass of K5 + K4 + K6 (4-bit digits);
 4. the bitonic engine keys-only at 2^24;
 5. the padded row: [8,192 x 2,560], the 2,048 keys of a row and 512
    sentinels.
@@ -61,7 +61,7 @@ def pad_rows(x: torch.Tensor, pad: int = PAD) -> torch.Tensor:
 
 
 def radix_bits4(u: torch.Tensor) -> torch.Tensor:
-    """The radix engine over the low 4 bits (2 passes) of int32 u32 patterns."""
+    """The radix engine over the low 4 bits (1 pass) of int32 u32 patterns."""
     return radix.sort_u32(u, bit_count=4)[0]
 
 
@@ -90,7 +90,7 @@ def cases(device, n: int = N, seed: int = 0, row_lengths=ROW_LENGTHS, row: int =
          lambda a, b, c: sort_with_payloads(a, b, c, stable=True), (k, v, w), n),
     ]
     u = interop.from_numpy(u32(n, rng).view(np.int32), dev)
-    out += [("radix bit_count=4 (2 passes: K5 + K4 + K6)", radix_bits4, (u,), n),
+    out += [("radix bit_count=4 (1 pass: K5 + K4 + K6)", radix_bits4, (u,), n),
             (f"bitonic {n} keys-only", bitonic_keys, (u.view(torch.uint32),), n),
             (f"torch.sort [{C}x{row + row // 4}] 1-op (1.25x sentinel pad)",
              lambda a: sort_rows(pad_rows(a, row // 4)), (k,), n)]

@@ -187,7 +187,7 @@ def _engine_sort(key_cols, payloads, *, stable, method, tile, key_bits=32,
     key_cols and payloads are 1-D int32 (u32 pattern) tensors; key_cols is
     (mkeys,) for 16- and 32-bit keys, (hi, lo) or (lo,) for 64-bit keys.
     Returns (key_cols, payloads). `key_bits`: the number of meaningful low
-    bits of the tuple (the radix engine runs key_bits / 2 passes).
+    bits of the tuple (the radix engine's passes: ``radix.digit_widths``).
     `rank_payload`: see :func:`_bitonic_engine`. The radix engine is stable
     by construction and ignores it; it alone takes `check_order`, its
     mid-sort early exit, on one key column.

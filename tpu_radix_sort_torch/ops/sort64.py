@@ -18,8 +18,8 @@ given the key-column tuple; 'auto' takes bitonic below
   (hi, lo, tie, the full key's hi and lo, the value's hi and lo).
 - **radix**: LSD composition over the two words: the stable 32-bit radix
   sort on lo, carrying hi and the payloads, then on hi, carrying lo
-  (``ops/radix.sort_u32`` twice), 16 passes on lo and `bit_count`/2 - 16
-  on the masked hi.
+  (``ops/radix.sort_u32`` twice), 4 passes on lo and
+  ``radix.digit_widths(bit_count - 32)`` on the masked hi (2 at 44 bits).
 - **xla**: ``torch.sort(stable=True)`` on the int64 word
   ``((hi << 32) | lo) ^ INT64_MIN`` plus a gather — the baseline.
 
