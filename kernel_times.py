@@ -37,9 +37,10 @@ takes (2 bits, and 4, 6 and 8 where it has them; 8 at tiles 2^12 to 2^16),
 K6 with 1 to 6 columns, each beside a ``copy_`` of the same columns and its
 bound, K6 once on the entropy cell's keys (the AND of 5 uniform words: one
 hot digit), and each width's pass checked once against its plain version;
-then the 2^26 key+index sort through ``'auto'`` and the 30M u64 key + u32
-payload sort by 44 bits (the flat and splat cells' calls), each beside its
-passes. ``--ce-probe-only`` builds only ``explore_ce.cu`` and times every case of
+then the 2^26 key+index sort through ``'auto'``, the same sort through the
+radix engine with ``check_order=True`` (16 passes of 2 bits) and the 30M u64
+key + u32 payload sort by 44 bits (the flat and splat cells' calls), each
+beside its passes. ``--ce-probe-only`` builds only ``explore_ce.cu`` and times every case of
 the compare-exchange probe P1 (``explore_ce.cases(ce_all=True)``) at 2^24 in
 both formulations, at 16 and at 0 stages, each beside a ``copy_`` of the
 same columns, every call queued behind a sleep. ``--keys16-probe-only``
@@ -62,6 +63,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import functools
 import json
 import re
 import subprocess
@@ -224,7 +226,8 @@ def main() -> int:
 
 def radix_times(torch, device_time) -> dict:
     """K5 and K6 of the checkout on pass 0 at each digit width and tile,
-    1 to 6 columns, at 2^26 and 30M keys, and the flat and splat calls."""
+    1 to 6 columns, at 2^26 and 30M keys, and the flat, `check_order` and
+    splat calls."""
     import tpu_radix_sort_torch as trt
     from tpu_radix_sort_torch import _build
     from tpu_radix_sort_torch.ops import radix
@@ -293,17 +296,19 @@ def radix_times(torch, device_time) -> dict:
                       generator=gen).view(torch.uint32)
     iota = torch.arange(N, dtype=torch.int32, device="cuda").view(torch.uint32)
     sk, idx = torch.sort(k.view(torch.int32) ^ (-2**31), stable=True)
-    ok, ov = trt.sort(k, iota, values_are_ranks=True)
-    flat_ok = bool(torch.equal(ok.view(torch.int32), sk ^ (-2**31))
-                   and torch.equal(ov.view(torch.int32), idx.to(torch.int32)))
-    del ok, ov, sk, idx
-    h0 = _build.DIGIT_HISTOGRAM.launches
-    trt.sort(k, iota, values_are_ranks=True)
-    passes = _build.DIGIT_HISTOGRAM.launches - h0
-    out["flat_sort"] = {"ms": ms(lambda a, b: trt.sort(a, b, values_are_ranks=True), k, iota,
-                                 iters=10),
-                        "passes": passes, "equals_torch_sort": flat_ok}
-    del k, iota
+    # the flat call, and the one call that runs 2-bit passes: the radix
+    # engine with the reference's order check (16 passes on random keys)
+    for name, kw in (("flat_sort", {"values_are_ranks": True}),
+                     ("check_order_sort", {"method": "radix", "check_order": True})):
+        h0 = _build.DIGIT_HISTOGRAM.launches
+        ok, ov = trt.sort(k, iota, **kw)
+        passes = _build.DIGIT_HISTOGRAM.launches - h0
+        same = bool(torch.equal(ok.view(torch.int32), sk ^ (-2**31))
+                    and torch.equal(ov.view(torch.int32), idx.to(torch.int32)))
+        del ok, ov
+        out[name] = {"ms": ms(functools.partial(trt.sort, **kw), k, iota, iters=10),
+                     "passes": passes, "equals_torch_sort": same}
+    del k, iota, sk, idx
     n = 30_000_000
     k64 = torch.randint(-2**63, 2**63 - 1, (n,), dtype=torch.int64, device="cuda",
                         generator=gen).view(torch.uint64)

@@ -136,47 +136,19 @@ def test_scan_kernel_matches_plain(cuda, n, inclusive):
                        .view(torch.int32), scan.scan_plain(whole[1:], inclusive=inclusive))
 
 
+@pytest.mark.parametrize("digit_bits", [2, 4, 6, 8])
 @pytest.mark.parametrize("n_arr", [1, 2, 3, 4, 5, 6])
-@pytest.mark.parametrize("tile", [32, 128, 256, 4096, 1 << 16])
-@pytest.mark.parametrize("keys", ["random", "all-equal"])
-def test_radix_kernels_match_plain(cuda, n_arr, tile, keys):
-    """K5 and K6 against their plain versions, one launch each per pass.
-    Tiles below K6's 4,096-element chunk (32 and 128: one warp, part of its
-    items empty) and above it (2^16: 16 chunks a block); n = 1,000 is below
-    one chunk, and 2^18 + 3 leaves a last tile of 3 keys, shorter than a
-    warp. All-equal keys put a whole tile of 2^16 in one digit run."""
-    rng = np.random.default_rng(n_arr * tile + (keys == "all-equal"))
-    for n in (1000, (1 << 18) + 3):
-        x = torch.from_numpy(rng.integers(-2**31, 2**31, (n_arr, n), dtype=np.int64)
-                             .astype(np.int32)).to(cuda)
-        if keys == "all-equal":
-            x[0] = -0x21524111  # 0xDEADBEEF
-        else:
-            x[0, ::7] = 12345  # one digit run across tiles
-        for bit in (0, 14, 30):
-            h0, r0 = _build.DIGIT_HISTOGRAM.launches, _build.REORDER.launches
-            hist = radix.digit_histogram(x[0], bit=bit, tile=tile)
-            assert torch.equal(hist, radix.digit_histogram_plain(x[0], bit=bit, tile=tile))
-            offs = radix.bucket_offsets(hist)
-            got = radix.reorder_pass(x, offs, bit=bit, tile=tile)
-            want = radix.reorder_pass_plain(x, offs, bit=bit, tile=tile,
-                                            out=torch.empty_like(x))
-            torch.cuda.synchronize()
-            assert torch.equal(got, want), (n, bit)
-            assert (_build.DIGIT_HISTOGRAM.launches, _build.REORDER.launches) == (h0 + 1, r0 + 1)
-
-
-@pytest.mark.parametrize("digit_bits", [4, 6, 8])
-@pytest.mark.parametrize("n_arr", [1, 2, 3, 4, 5, 6])
-@pytest.mark.parametrize("tile", [128, 4096, 1 << 15, 1 << 16])
+@pytest.mark.parametrize("tile", [32, 128, 256, 4096, 1 << 15, 1 << 16])
 def test_wide_radix_kernels_match_plain(cuda, digit_bits, n_arr, tile):
-    """K5 and K6 at 4, 6 and 8 bits a digit (the width rule's last digits
-    and its 8-bit passes) against their plain versions, one launch each a
-    pass: tiles below K6's 4,096-element chunk and above it (tiles of 8
-    and 16 chunks, K6 clusters of 8 and 16 blocks), n = 1,000 within one
-    chunk and 2^18 + 3 with a last tile of 3 keys (and empty blocks); random keys with one digit run across tiles, all-equal
-    keys (one run fills every tile) and keys whose digit is one hot value
-    in 3 of 4 elements."""
+    """K5 and K6 at every digit width (2 bits: the `check_order` passes; 4
+    and 6: the width rule's last digits; 8: its passes) against their plain
+    versions, one launch each a pass: tiles below K6's 4,096-element chunk
+    (32 to 256: one warp's items, or part of them) and above it (tiles of
+    8 and 16 chunks, K6 clusters of 8 and 16 blocks), n = 1,000 within one
+    chunk and 2^18 + 3 with a last tile of 3 keys, shorter than a warp (and
+    empty blocks); random keys with one digit run across tiles, all-equal
+    keys (one run fills every tile, 2^16 at the largest) and keys whose
+    digit is one hot value in 3 of 4 elements."""
     rng = np.random.default_rng(1000 * digit_bits + 10 * n_arr + tile.bit_length())
     for n in (1000, (1 << 18) + 3):
         x = torch.from_numpy(rng.integers(-2**31, 2**31, (n_arr, n), dtype=np.int64)

@@ -2,6 +2,9 @@
 kernels' plain versions): `sort` / `argsort` / `sort_packed` and the kernel
 classes, byte-exact against the JAX package (`method="bitonic"`, Pallas in
 interpret mode) and the numpy golden, over the hazards of ROADMAP.md."""
+import gc
+import weakref
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -147,6 +150,30 @@ def test_split_path_matches_golden(monkeypatch):
             assert _eq(trt.sort(k, v, device="cpu", tile=64, method="bitonic", **kw),
                        golden_sort(k, v, **_gold_kw(kw))), (n, kw)
         assert _eq(trt.sort(k, device="cpu", method="bitonic"), golden_sort(k))
+
+
+@pytest.mark.parametrize("split", [False, True])
+def test_bitonic_pad_sort_holds_nothing_once_it_returns(monkeypatch, split):
+    """With the cyclic GC off, the caller's key and payload columns die with
+    its last reference to them once `_bitonic_pad_sort` has returned, on the
+    plain path and on the split path (SPLIT_MIN_N lowered; 1324 pads to 2048
+    and recurses)."""
+    if split:
+        monkeypatch.setattr(sort_mod, "SPLIT_MIN_N", 256)
+    rng = np.random.default_rng(8)
+    n = 1324
+    k = torch.from_numpy(_u32(rng, n, 300).view(np.int32))
+    v = torch.arange(n, dtype=torch.int32)
+    gc.collect()
+    gc.disable()
+    try:
+        refs = [weakref.ref(k), weakref.ref(v)]
+        out = sort_mod._bitonic_pad_sort((k,), (v,), tie="iota", tile=64)
+        del k, v
+        assert [r() is None for r in refs] == [True, True]
+    finally:
+        gc.enable()
+    assert out.shape == (3, 2048)
 
 
 def test_output_does_not_depend_on_tile():

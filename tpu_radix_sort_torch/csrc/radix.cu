@@ -14,8 +14,8 @@
 //       offs[r * nblocks + b] + (the number of earlier elements of tile b
 //       with digit r), offs being the exclusive scan of the digit-major
 //       histogram; all n_arr columns move with the key (column 0).
-// Both kernels must be given the same tile and width. At w = 2 they are the
-// TPU kernels' counterparts; the wider digits are this card's design.
+// Both kernels must be given the same tile and width. K5 has one body for
+// every width; K6 has two, chosen by the width (reorder_kernel).
 //
 // The width (ops/radix.py `digit_widths`): a sort without the order check
 // runs passes of 8 bits, the last of bit_count mod 8 bits (2, 4 or 6) where
@@ -27,10 +27,9 @@
 //
 // Bound on this card: the histogram reads 4 * n bytes; the reorder reads
 // and writes n_arr * 4 * n bytes, at 3.35 TB/s.
-// - The histogram at w = 2 counts in registers and reduces by shuffles; at
-//   w > 2 each warp counts into its own 2^w bins in shared memory with
-//   atomics, except that the lanes sharing lane 0's digit are counted by
-//   one ballot and one add: a hot digit (all 32 lanes equal) costs one
+// - The histogram: each warp counts into its own 2^w bins in shared memory
+//   with atomics, except that the lanes sharing lane 0's digit are counted
+//   by one ballot and one add: a hot digit (all 32 lanes equal) costs one
 //   atomic, not 32 on one bin.
 // - The reorder moves chunks of kItems = 16 elements a thread (4,096 with
 //   256 threads). Every column of a chunk is copied into shared memory with
@@ -92,7 +91,7 @@ constexpr unsigned kMaxBits = 8;
 constexpr unsigned kCountWords =
     kMaxWarps * (1u << kMaxBits) / 2 + kMaxWarps + (1u << kMaxBits);
 constexpr unsigned kMaxCluster = 16;
-// histogram: threads a block at w > 2 (a wide tile is 2^15 or 2^16 keys)
+// histogram: the most threads a block
 constexpr unsigned kHistThreads = 512;
 
 __device__ __forceinline__ unsigned pick(const unsigned (&a)[4], unsigned r) {
@@ -122,65 +121,41 @@ __global__ void digit_histogram_kernel(const unsigned* __restrict__ x, unsigned 
   const unsigned base = blockIdx.x * tile;
   const unsigned end = n - base < tile ? n : base + tile;
   const unsigned lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if constexpr (W == 2) {
-    unsigned c[4] = {0u, 0u, 0u, 0u};
-    for (unsigned i = base + threadIdx.x; i < end; i += blockDim.x) {
-      const unsigned d = (x[i] >> bit) & 3u;
+  // per-warp sub-histograms in shared memory, counted with atomics; the
+  // lanes that share lane 0's digit are counted by one ballot and one add,
+  // so a hot digit (the entropy cell's 0 in 3 of 4 keys, or all-equal
+  // keys) does not serialise a warp's atomics on one bin
+  constexpr unsigned R = 1u << W;
+  __shared__ unsigned sub[kHistThreads / 32][R];
+  const unsigned nwarps = blockDim.x >> 5;
+  for (unsigned i = threadIdx.x; i < nwarps * R; i += blockDim.x) (&sub[0][0])[i] = 0;
+  __syncthreads();
+  unsigned* mine = sub[warp];
+  // rounds are warp-uniform (every lane runs each ballot); a lane past end
+  // takes the digit R, which no bin counts
+  for (unsigned i0 = base + 32 * warp; i0 < end; i0 += 4 * blockDim.x) {
+    unsigned d[4];
 #pragma unroll
-      for (unsigned r = 0; r < 4; ++r) c[r] += d == r;
+    for (unsigned q = 0; q < 4; ++q) {
+      const unsigned i = i0 + q * blockDim.x + lane;
+      d[q] = i < end ? (x[i] >> bit) & (R - 1) : R;
     }
 #pragma unroll
-    for (unsigned r = 0; r < 4; ++r)
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) c[r] += __shfl_down_sync(kFull, c[r], o);
-    __shared__ unsigned part[kMaxWarps][4];
-    if (lane == 0) {
-#pragma unroll
-      for (unsigned r = 0; r < 4; ++r) part[warp][r] = c[r];
-    }
-    __syncthreads();
-    if (threadIdx.x < 4) {
-      unsigned s = 0;
-      for (unsigned w = 0; w < (blockDim.x >> 5); ++w) s += part[w][threadIdx.x];
-      hist[threadIdx.x * nblocks + blockIdx.x] = s;
-    }
-  } else {
-    // per-warp sub-histograms in shared memory, counted with atomics; the
-    // lanes that share lane 0's digit are counted by one ballot and one add,
-    // so a hot digit (the entropy cell's 0 in 3 of 4 keys, or all-equal
-    // keys) does not serialise a warp's atomics on one bin
-    constexpr unsigned R = 1u << W;
-    __shared__ unsigned sub[kHistThreads / 32][R];
-    const unsigned nwarps = blockDim.x >> 5;
-    for (unsigned i = threadIdx.x; i < nwarps * R; i += blockDim.x) (&sub[0][0])[i] = 0;
-    __syncthreads();
-    unsigned* mine = sub[warp];
-    // rounds are warp-uniform (every lane runs each ballot); a lane past end
-    // takes the digit R, which no bin counts
-    for (unsigned i0 = base + 32 * warp; i0 < end; i0 += 4 * blockDim.x) {
-      unsigned d[4];
-#pragma unroll
-      for (unsigned q = 0; q < 4; ++q) {
-        const unsigned i = i0 + q * blockDim.x + lane;
-        d[q] = i < end ? (x[i] >> bit) & (R - 1) : R;
-      }
-#pragma unroll
-      for (unsigned q = 0; q < 4; ++q) {
-        const unsigned lead = __shfl_sync(kFull, d[q], 0);
-        const unsigned same = __ballot_sync(kFull, d[q] == lead);
-        if (d[q] != lead) {
-          if (d[q] < R) atomicAdd(mine + d[q], 1u);
-        } else if (lane == 0 && lead < R) {
-          atomicAdd(mine + lead, (unsigned)__popc(same));
-        }
+    for (unsigned q = 0; q < 4; ++q) {
+      const unsigned lead = __shfl_sync(kFull, d[q], 0);
+      const unsigned same = __ballot_sync(kFull, d[q] == lead);
+      if (d[q] != lead) {
+        if (d[q] < R) atomicAdd(mine + d[q], 1u);
+      } else if (lane == 0 && lead < R) {
+        atomicAdd(mine + lead, (unsigned)__popc(same));
       }
     }
-    __syncthreads();
-    for (unsigned r = threadIdx.x; r < R; r += blockDim.x) {
-      unsigned s = 0;
-      for (unsigned w = 0; w < nwarps; ++w) s += sub[w][r];
-      hist[r * nblocks + blockIdx.x] = s;
-    }
+  }
+  __syncthreads();
+  for (unsigned r = threadIdx.x; r < R; r += blockDim.x) {
+    unsigned s = 0;
+    for (unsigned w = 0; w < nwarps; ++w) s += sub[w][r];
+    hist[r * nblocks + blockIdx.x] = s;
   }
 }
 
@@ -493,6 +468,12 @@ reorder_kernel(const unsigned* __restrict__ src, unsigned* __restrict__ dst, uns
                int n_arr, unsigned bit, unsigned tile, unsigned chunk, unsigned nblocks,
                const unsigned* __restrict__ offs) {
   extern __shared__ __align__(16) unsigned smem[];
+  // reorder_wide<2> at the 2-bit passes' tile of 4,096 (a cluster of one
+  // block) ran 18-33% slower than reorder4 on an H100 (80GB HBM3, 700 W),
+  // pass 0 at 2^26 with 1-6 columns: 0.312-0.313, 0.451-0.452,
+  // 0.680-0.682, 1.004-1.007, 1.190, 1.402 ms against 0.235, 0.378-0.379,
+  // 0.570-0.571, 0.837-0.839, 1.005-1.008, 1.176 ms; so w = 2 keeps its own
+  // body
   if constexpr (W == 2)
     reorder4(smem, src, dst, n, n_arr, bit, tile, chunk, nblocks, offs);
   else
@@ -534,8 +515,7 @@ template <unsigned W>
 cudaError_t launch_histogram(const void* x, long long n, int bit, long long tile, void* hist,
                              cudaStream_t stream) {
   const unsigned nblocks = (unsigned)((n + tile - 1) / tile);
-  const unsigned most = W == 2 ? kMaxThreads : kHistThreads;
-  const unsigned threads = tile < most ? (unsigned)tile : most;
+  const unsigned threads = tile < kHistThreads ? (unsigned)tile : kHistThreads;
   digit_histogram_kernel<W><<<nblocks, threads, 0, stream>>>(
       (const unsigned*)x, (unsigned)n, (unsigned)bit, (unsigned)tile, nblocks, (unsigned*)hist);
   return cudaGetLastError();

@@ -20,9 +20,9 @@ sort without the order check runs digits of 8 bits, the last of
 passes, a u16 key 2. ``check_order=True`` keeps the reference's 2-bit
 digits (its 4-way split), ``bit_count // 2`` passes, and runs the
 reference's mid-sort order check (K2, ``checksort``) before every 2nd pass,
-stopping once the keys are sorted; the check is a host branch. At 2 bits
-K5 and K6 are the TPU kernels' counterparts; the wider digits are this
-card's design (``csrc/radix.cu``).
+stopping once the keys are sorted; the check is a host branch. K5 has
+one body for every width; K6 keeps a body of its own for the 2-bit passes,
+which ran faster there than the wide one (``csrc/radix.cu``).
 
 The table and its offsets take ``2 * 4 * 2^w * nblocks`` bytes of device
 memory, so at w > 2 the default tile (:func:`default_tile`) grows with n

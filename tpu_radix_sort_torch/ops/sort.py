@@ -62,54 +62,61 @@ def _bitonic_pad_sort(key_cols, payloads, *, tie, tile):
     [key columns, tie (if any), payloads...]. A range whose pow2 pad would
     waste >= 33% is sorted as prefix + remainder (recursively) and combined
     with one merge; the result is byte-exact because real (keys, tie)
-    tuples are pairwise distinct and pads sort last.
+    tuples are pairwise distinct and pads sort last. Nothing of the call
+    outlives it: the recursion is module-level and captures nothing.
     """
-    dev = key_cols[0].device
     rank = tie if isinstance(tie, torch.Tensor) else None
-    n_keys = len(key_cols) + (tie is not None)
-    n_cols = n_keys + len(payloads)
-    sentinel = common.i32(common.SENTINEL_U32)
     # pad tie = pad key = SENTINEL_U32: real max-key elements precede pads
     # because their rank is < 0xFFFFFFFF (contract)
     padded = tuple(key_cols) + (() if rank is None else (rank,))
+    return _sorted_part(padded, tie is not None and rank is None, tuple(payloads),
+                        len(key_cols) + (tie is not None), 0, key_cols[0].shape[0], tile)
 
-    def build(lo, hi, pad_len):
-        m = hi - lo
-        x = torch.empty((n_cols, pad_len), dtype=torch.int32, device=dev)
-        for r, c in enumerate(padded):
-            x[r, :m] = c[lo:hi]
-            x[r, m:] = sentinel
-        if tie is not None and rank is None:
-            # global index tie-break, continued past the real data so pads
-            # sort after every real element of this part
-            x[len(key_cols)] = torch.arange(lo, lo + pad_len, dtype=torch.int32, device=dev)
-        for r, p in enumerate(payloads, n_keys):
-            x[r, :m] = p[lo:hi]
-            x[r, m:] = 0
-        return x
 
-    def sorted_cols(lo, hi):
-        m = hi - lo
-        m_pad = max(bitonic.LANES, common.next_pow2(m))
-        a = m_pad // 2
-        if not (m >= SPLIT_MIN_N and 3 * m_pad >= 4 * m and a >= bitonic.LANES):
-            return bitonic.sort_padded_cols(build(lo, hi, m_pad), n_keys=n_keys,
-                                            tile=tile)
-        A = sorted_cols(lo, lo + a)  # exactly pow2: no pads inside
-        B = sorted_cols(lo + a, hi)  # length next_pow2(m - a) <= a
-        # extend B to length a with identical sentinel tuples (byte no-op
-        # exchanges), reverse it so [A ascending ++ B descending] is a
-        # bitonic sequence, and merge.
-        ext = a - B.shape[1]
-        if ext:
-            fill = torch.zeros((n_cols, ext), dtype=torch.int32, device=dev)
-            fill[:n_keys] = sentinel
-            B = torch.cat([B, fill], dim=1)
-        C = torch.cat([A, B.flip(1)], dim=1)
-        del A, B
-        return bitonic.merge_padded_cols(C, n_keys=n_keys, tile=tile)
+def _padded_part(padded, iota, payloads, n_keys, lo, hi, pad_len):
+    """Elements lo:hi of the `padded` key (and rank) columns, the iota tie
+    where `iota`, and the payloads, as one (n_keys + len(payloads), pad_len)
+    int32 tensor: keys and tie padded with the sentinel, payloads with 0."""
+    m = hi - lo
+    dev = padded[0].device
+    sentinel = common.i32(common.SENTINEL_U32)
+    x = torch.empty((n_keys + len(payloads), pad_len), dtype=torch.int32, device=dev)
+    for r, c in enumerate(padded):
+        x[r, :m] = c[lo:hi]
+        x[r, m:] = sentinel
+    if iota:
+        # global index tie-break, continued past the real data so pads
+        # sort after every real element of this part
+        x[n_keys - 1] = torch.arange(lo, lo + pad_len, dtype=torch.int32, device=dev)
+    for r, c in enumerate(payloads, n_keys):
+        x[r, :m] = c[lo:hi]
+        x[r, m:] = 0
+    return x
 
-    return sorted_cols(0, key_cols[0].shape[0])
+
+def _sorted_part(padded, iota, payloads, n_keys, lo, hi, tile):
+    """The sorted :func:`_padded_part` of elements lo:hi, split and merged
+    where its pad would waste >= 33%."""
+    m = hi - lo
+    m_pad = max(bitonic.LANES, common.next_pow2(m))
+    a = m_pad // 2
+    if not (m >= SPLIT_MIN_N and 3 * m_pad >= 4 * m and a >= bitonic.LANES):
+        x = _padded_part(padded, iota, payloads, n_keys, lo, hi, m_pad)
+        return bitonic.sort_padded_cols(x, n_keys=n_keys, tile=tile)
+    # A exactly pow2 (no pads inside); B of length next_pow2(m - a) <= a
+    A = _sorted_part(padded, iota, payloads, n_keys, lo, lo + a, tile)
+    B = _sorted_part(padded, iota, payloads, n_keys, lo + a, hi, tile)
+    # extend B to length a with identical sentinel tuples (byte no-op
+    # exchanges), reverse it so [A ascending ++ B descending] is a
+    # bitonic sequence, and merge.
+    ext = a - B.shape[1]
+    if ext:
+        fill = torch.zeros((B.shape[0], ext), dtype=torch.int32, device=B.device)
+        fill[:n_keys] = common.i32(common.SENTINEL_U32)
+        B = torch.cat([B, fill], dim=1)
+    C = torch.cat([A, B.flip(1)], dim=1)
+    del A, B
+    return bitonic.merge_padded_cols(C, n_keys=n_keys, tile=tile)
 
 
 def _bitonic_engine(key_cols, payloads, *, stable, rank_payload, tile):
